@@ -1,0 +1,377 @@
+"""Hand-written Hopper kernels for the UNet's two fused hot ops, their plain
+PyTorch versions, ``torch.autograd.Function`` wrappers and launch counters.
+
+Two kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
+
+- ``groupnorm_silu`` (``csrc/groupnorm_silu.cu``, two launches: ``gn_stats``
+  and ``gn_norm``): GroupNorm with fp32 statistics + optional FiLM
+  scale-shift + SiLU over NHWC activations, bf16 or fp32. Replaces
+  ``ishapediting_tpu/ops/pallas_kernels.py::groupnorm_silu``.
+- ``attention_qkv`` (``csrc/attention.cu``, one launch): ADM legacy QKV
+  attention over ``[N, T, H*3*ch]`` bf16, ch in {32, 64, 128}. Replaces
+  ``ishapediting_tpu/ops/pallas_kernels.py::attention_qkv``.
+
+Dispatch is by device and nothing else: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises. The kernels build at
+first use with nvcc into ``build/kernels/`` (one ``nvcc -c`` per source,
+started together, then one link) and bind through ctypes. Backward passes
+recompute through the plain versions, as the JAX package's ``custom_vjp``
+does. ``LAUNCHES`` counts each kernel launch, so that a run can show it went
+through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from ishapediting_tpu_torch.ops.attention import dense_qkv_attention
+from ishapediting_tpu_torch.ops.nn import effective_groups, group_norm, silu
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+SOURCES = ("groupnorm_silu.cu", "attention.cu")
+LIB_NAME = "libishape_kernels.so"
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+LAUNCHES: Dict[str, int] = {"gn_stats": 0, "gn_norm": 0, "attention": 0}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build and bind
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the Hopper kernels cannot be built")
+
+
+def build_kernels() -> str:
+    """Compile every source in ``csrc/`` (one nvcc each, in parallel) and
+    link them into one shared library. Returns its path; rebuilds only when
+    a source is newer than the library."""
+    lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
+    if os.path.exists(lib_path) and all(
+        os.path.getmtime(s) <= os.path.getmtime(lib_path) for s in srcs
+    ):
+        return lib_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    flags = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    objs, procs = [], []
+    for src in srcs:
+        obj = os.path.join(BUILD_DIR, os.path.basename(src) + f".{os.getpid()}.o")
+        objs.append(obj)
+        procs.append(
+            subprocess.Popen(
+                [nvcc, *flags, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+        )
+    logs = [p.communicate()[0] for p in procs]
+    for src, p, log in zip(srcs, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+    tmp = lib_path + f".{os.getpid()}.tmp"
+    link = subprocess.run(
+        [nvcc, *NVCC_ARCH, "-shared", "-o", tmp, *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+    for obj in objs:
+        os.remove(obj)
+    return lib_path
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_kernels())
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.ishape_gn_stats.argtypes = [p, p, i, i, i, i, i, i, i, p]
+            lib.ishape_gn_stats.restype = i
+            lib.ishape_gn_norm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+            lib.ishape_gn_norm.restype = i
+            lib.ishape_attention.argtypes = [p, p, i, i, i, i, p]
+            lib.ishape_attention.restype = i
+            lib.ishape_error_string.argtypes = [i]
+            lib.ishape_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.ishape_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
+
+
+def _require_cuda(t: torch.Tensor, name: str, dtypes) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (want {dtypes})")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_device(t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}: cpu (plain) or cuda (kernel)")
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm + FiLM + SiLU
+# ---------------------------------------------------------------------------
+
+_GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GN_MAX_GROUPS = 1024
+_GN_TARGET_BLOCKS = 1024  # stats blocks in flight: ~8 per SM on 132 SMs
+_GN_TILE_ELEMS = 16384  # elements per normalize block
+
+
+def groupnorm_silu_plain(x, scale, bias, num_groups=32, eps=1e-5, film=None):
+    """The composition the kernel fuses (the JAX package's ``ops/nn.py``
+    ``group_norm_silu`` off the TPU): GroupNorm cast to x's dtype, FiLM and
+    SiLU in x's dtype. ``film``: optional (scale, shift), each [N, C]."""
+    y = group_norm(x, scale, bias, num_groups, eps)
+    if film is not None:
+        n, c = x.shape[0], x.shape[-1]
+        fs = film[0].reshape(n, 1, 1, c)
+        fb = film[1].reshape(n, 1, 1, c)
+        y = y * (1 + fs) + fb
+    return silu(y)
+
+
+def gn_splits(n: int, hw: int, groups: int) -> tuple:
+    """(splits, rows per split) of the statistics pass: enough blocks to
+    fill the card at any batch, never an empty split."""
+    s = max(1, min(hw, -(-_GN_TARGET_BLOCKS // (n * groups))))
+    rows = -(-hw // s)
+    return -(-hw // rows), rows
+
+
+def gn_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Plain version of the ``gn_stats`` kernel: fp32 (count, mean, M2) of
+    each (sample, group, row split) of NHWC ``x``, as [N, G, S, 3]."""
+    n, h, w, c = x.shape
+    s, rows = gn_splits(n, h * w, groups)
+    xg = x.float().reshape(n, h * w, groups, c // groups)
+    parts = []
+    for i in range(s):
+        blk = xg[:, i * rows:(i + 1) * rows]
+        mean = blk.mean(dim=(1, 3))
+        m2 = (blk - mean[:, None, :, None]).square().sum(dim=(1, 3))
+        count = torch.full_like(mean, blk.shape[1] * blk.shape[3])
+        parts.append(torch.stack([count, mean, m2], dim=-1))
+    return torch.stack(parts, dim=2)
+
+
+def gn_norm_plain(x, part, scale, bias, eps=1e-5, film=None):
+    """Plain version of the ``gn_norm`` kernel: merge the partial statistics
+    ``part`` [N, G, S, 3], then normalize, affine, FiLM and SiLU in fp32 with
+    one cast to x's dtype at the end."""
+    n, h, w, c = x.shape
+    g = part.shape[1]
+    count, mean, m2 = part.unbind(-1)
+    total = count.sum(-1)
+    mu = (count * mean).sum(-1) / total
+    var = (m2.sum(-1) + (count * (mean - mu[..., None]).square()).sum(-1)) / total
+    xg = x.float().reshape(n, h, w, g, c // g)
+    y = (xg - mu[:, None, None, :, None]) * torch.rsqrt(var + eps)[:, None, None, :, None]
+    y = y.reshape(n, h, w, c) * scale.float() + bias.float()
+    if film is not None:
+        fs = film[0].float().reshape(n, 1, 1, c)
+        fb = film[1].float().reshape(n, 1, 1, c)
+        y = y * (1 + fs) + fb
+    return silu(y).to(x.dtype)
+
+
+def gn_stats_cuda(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Launch the statistics kernel on x [N, H, W, C] (contiguous, bf16 or
+    fp32). Returns the fp32 partials [N, G, S, 3] of ``gn_stats_plain``."""
+    _require_cuda(x, "x", tuple(_GN_DTYPES))
+    if x.ndim != 4 or x.shape[-1] % groups:
+        raise ValueError(f"x must be [N, H, W, C] with C divisible by {groups}, got {tuple(x.shape)}")
+    if not 1 <= groups <= _GN_MAX_GROUPS:
+        raise ValueError(f"{groups} groups: the kernel takes 1..{_GN_MAX_GROUPS}")
+    n, h, w, c = x.shape
+    s, rows = gn_splits(n, h * w, groups)
+    part = torch.empty((n, groups, s, 3), dtype=torch.float32, device=x.device)
+    lib = _load()
+    _check(lib, lib.ishape_gn_stats(
+        x.data_ptr(), part.data_ptr(), _GN_DTYPES[x.dtype], n, h * w, c, groups, s, rows,
+        _stream(x),
+    ), "gn_stats")
+    LAUNCHES["gn_stats"] += 1
+    return part
+
+
+def gn_norm_cuda(x, part, scale, bias, eps=1e-5, film=None):
+    """Launch the normalize kernel on x [N, H, W, C] with the partials
+    ``part`` [N, G, S, 3] of ``gn_stats_cuda``. Allocates the output."""
+    _require_cuda(x, "x", tuple(_GN_DTYPES))
+    _require_cuda(part, "part", (torch.float32,))
+    if x.ndim != 4:
+        raise ValueError(f"x must be [N, H, W, C], got {tuple(x.shape)}")
+    n, h, w, c = x.shape
+    if part.ndim != 4 or part.shape[0] != n or part.shape[3] != 3 or c % part.shape[1]:
+        raise ValueError(f"part {tuple(part.shape)} does not fit x {tuple(x.shape)}")
+    g, s = part.shape[1], part.shape[2]
+    gamma = scale.detach().float().reshape(c).contiguous()
+    beta = bias.detach().float().reshape(c).contiguous()
+    film_t = None
+    if film is not None:
+        film_t = torch.stack(
+            [film[0].detach().reshape(n, c), film[1].detach().reshape(n, c)], dim=1
+        ).float().contiguous()  # [N, 2, C], scale row first
+    for name, t in (("part", part), ("scale", gamma), ("bias", beta), ("film", film_t)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    y = torch.empty_like(x)
+    lib = _load()
+    _check(lib, lib.ishape_gn_norm(
+        x.data_ptr(), y.data_ptr(), part.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), 0 if film_t is None else film_t.data_ptr(),
+        _GN_DTYPES[x.dtype], n, h * w, c, g, s, max(1, _GN_TILE_ELEMS // c), float(eps),
+        _stream(x),
+    ), "gn_norm")
+    LAUNCHES["gn_norm"] += 1
+    return y
+
+
+def groupnorm_silu_cuda(x, scale, bias, num_groups=32, eps=1e-5, film=None):
+    """Both GroupNorm-SiLU kernels on x [N, H, W, C] (contiguous, bf16 or
+    fp32): statistics, then merge and normalize."""
+    _require_cuda(x, "x", tuple(_GN_DTYPES))
+    part = gn_stats_cuda(x, effective_groups(x.shape[-1], num_groups))
+    return gn_norm_cuda(x, part, scale, bias, eps, film)
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """Forward: the kernel on CUDA, the plain version on the CPU. Backward:
+    recompute through the plain version (no backward kernel, as in JAX)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps):
+        ctx.save_for_backward(x, scale, bias, film_scale, film_shift)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        film = None if film_scale is None else (film_scale, film_shift)
+        if x.is_cuda:
+            return groupnorm_silu_cuda(x, scale, bias, num_groups, eps, film)
+        return groupnorm_silu_plain(x, scale, bias, num_groups, eps, film)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        inputs = [
+            None if t is None else t.detach().requires_grad_(ctx.needs_input_grad[i])
+            for i, t in enumerate(saved)
+        ]
+        x, scale, bias, fs, fb = inputs
+        with torch.enable_grad():
+            y = groupnorm_silu_plain(
+                x, scale, bias, ctx.num_groups, ctx.eps,
+                None if fs is None else (fs, fb),
+            )
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, gy, allow_unused=True))
+        out = [
+            next(grads) if t is not None and t.requires_grad else None
+            for t in inputs
+        ]
+        return (*out, None, None)
+
+
+def groupnorm_silu(x, scale, bias, num_groups=32, eps=1e-5, film=None):
+    """Fused ``silu(group_norm(x) [* (1 + fs) + fb])`` over NHWC ``x``.
+    ``film``: optional (scale, shift), each reshapeable to [N, C] (the ADM
+    scale-shift-norm FiLM, reference: unet.py:245-252)."""
+    _check_device(x)
+    fs, fb = (None, None) if film is None else film
+    return GroupNormSiLU.apply(x, scale, bias, fs, fb, num_groups, eps)
+
+
+# ---------------------------------------------------------------------------
+# QKV attention
+# ---------------------------------------------------------------------------
+
+_ATTN_HEAD_DIMS = (32, 64, 128)
+
+
+def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Launch the attention kernel on qkv [N, T, H*3*ch] (bf16, contiguous)."""
+    _require_cuda(qkv, "qkv", (torch.bfloat16,))
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not [N, T, {num_heads}*3*ch]")
+    n, t, width = qkv.shape
+    ch = width // (3 * num_heads)
+    if ch not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head dim {ch} not supported (kernel takes {_ATTN_HEAD_DIMS})")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned")
+    out = torch.empty((n, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
+    lib = _load()
+    _check(lib, lib.ishape_attention(
+        qkv.data_ptr(), out.data_ptr(), n, t, num_heads, ch, _stream(qkv)
+    ), "attention")
+    LAUNCHES["attention"] += 1
+    return out
+
+
+class QKVAttention(torch.autograd.Function):
+    """Forward: the kernel on CUDA, ``dense_qkv_attention`` on the CPU.
+    Backward: recompute through ``dense_qkv_attention``."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        if qkv.is_cuda:
+            return attention_qkv_cuda(qkv, num_heads)
+        return dense_qkv_attention(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, gout):
+        (qkv,) = ctx.saved_tensors
+        qkv = qkv.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = dense_qkv_attention(qkv, ctx.num_heads)
+        (g,) = torch.autograd.grad(out, qkv, gout)
+        return g, None
+
+
+def attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Fused ADM attention; same contract as ``dense_qkv_attention``
+    (qkv [N, T, H*3*ch], per-head q/k/v contiguous; reference: unet.py:328-354)."""
+    _check_device(qkv)
+    return QKVAttention.apply(qkv, num_heads)
