@@ -178,26 +178,68 @@ def kernel_checks(hk, dev):
     report = {}
     say("[2] kernels against their plain versions (main-path shapes)")
 
-    # Whole groupnorm_silu (both launches) at the main path's extremes.
+    # groupnorm_silu at the main path's extremes: both launches together, then
+    # each launch alone. The first case is also each launch's headline row.
     gn_cases = [
         ((2, 128, 128, 512), torch.bfloat16, True, 2e-2, 2e-2),
         ((2, 8, 8, 2048), torch.bfloat16, False, 2e-2, 2e-2),
         ((2, 128, 128, 256), torch.float32, False, 1e-4, 1e-4),  # the fp32 output head
     ]
+    rows = {"gn_stats": [], "gn_norm": [], "attention": []}
     for shape, dtype, film, atol, rtol in gn_cases:
         x, scale, bias, f = gn_inputs(gen, shape, dtype, film, dev)
         got = hk.groupnorm_silu(x, scale, bias, film=f)
         torch.cuda.synchronize()
         want = hk.groupnorm_silu_plain(x, scale, bias, film=f)
-        tag = f"groupnorm_silu {list(shape)} {str(dtype)[6:]}{' film' if film else ''}"
-        check_close(tag, got, want, atol, rtol)
-        k_ms = device_ms(lambda: hk.groupnorm_silu(x, scale, bias, film=f), kernel="::gn_")
+        dname = str(dtype)[6:]
+        tag = f"{list(shape)} {dname}{' film' if film else ''}"
+        check_close(f"groupnorm_silu {tag}", got, want, atol, rtol)
+        both_ms = device_ms(lambda: hk.groupnorm_silu(x, scale, bias, film=f), kernel="::gn_")
         p_ms = device_ms(lambda: hk.groupnorm_silu_plain(x, scale, bias, film=f), 5)
         xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         lib_ms = library_ms(lambda: F.silu(F.group_norm(xn, 32, scale.to(dtype), bias.to(dtype))))
         b_ms, _ = bound(2 * nbytes(x))
-        say(f"    both launches {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        say(f"    both launches {both_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"F.group_norm+F.silu {lib_ms} ms, bound {b_ms:.4f} ms")
+
+        g = effective_groups(shape[-1], 32)
+        part = hk.gn_stats_cuda(x, g)
+        torch.cuda.synchronize()
+        err_s = check_close(f"gn_stats {tag}, (count, mean, M2/count)", var_form(part),
+                            var_form(hk.gn_stats_plain(x, g)), 1e-4, 1e-4)
+        sb_ms, sb_by = bound(nbytes(x, part), fp32_flops=4 * x.numel())
+        xv = x.view(shape[0], -1, g, shape[-1] // g)
+        s_ms = device_ms(lambda: hk.gn_stats_cuda(x, g), kernel="gn_stats_kernel")
+        s_lib = library_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0))
+        y = hk.gn_norm_cuda(x, part, scale, bias, film=f)
+        torch.cuda.synchronize()
+        n_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5  # one rounding of x's dtype
+        err_n = check_close(f"gn_norm {tag}", y,
+                            hk.gn_norm_plain(x, part, scale, bias, film=f), n_tol, n_tol)
+        nb_ms, nb_by = bound(nbytes(x, y, part, scale, bias, *(f or ())),
+                             fp32_flops=12 * x.numel())
+        n_ms = device_ms(lambda: hk.gn_norm_cuda(x, part, scale, bias, film=f),
+                         kernel="gn_norm_kernel")
+        say(f"    gn_stats {s_ms:.4f} ms (bound {sb_ms:.4f}, torch.var_mean {s_lib}), "
+            f"gn_norm {n_ms:.4f} ms (bound {nb_ms:.4f})")
+        rows["gn_stats"].append(dict(shape=list(shape), dtype=dname, film=film, ms=s_ms,
+                                     bound_ms=sb_ms, library_ms=s_lib))
+        rows["gn_norm"].append(dict(shape=list(shape), dtype=dname, film=film, ms=n_ms,
+                                    bound_ms=nb_ms, library_ms=None, both_ms=both_ms,
+                                    both_library_ms=lib_ms))
+        if "gn_stats" not in report:
+            report["gn_stats"] = dict(
+                shape=list(shape), dtype=dname, max_abs_err=err_s,
+                tol="1e-4 + 1e-4|plain| on (count, mean, M2/count)", ms=s_ms,
+                plain_ms=device_ms(lambda: hk.gn_stats_plain(x, g), 5),
+                library_ms=s_lib, bound_ms=sb_ms, bound_by=sb_by,
+            )
+            report["gn_norm"] = dict(
+                shape=list(shape), dtype=dname, max_abs_err=err_n, tol="1e-2 + 1e-2|plain|",
+                ms=n_ms, plain_ms=device_ms(lambda: hk.gn_norm_plain(x, part, scale, bias, film=f), 5),
+                library_ms=None,  # no one PyTorch call normalizes from given statistics
+                bound_ms=nb_ms, bound_by=nb_by,
+            )
 
     # Backward through the autograd.Function (plain recompute) at a small shape.
     x, scale, bias, f = gn_inputs(gen, (2, 8, 8, 64), torch.float32, True, dev)
@@ -208,36 +250,6 @@ def kernel_checks(hk, dev):
     torch.cuda.synchronize()
     for i, (a, b) in enumerate(zip(leaves, ref)):
         check_close(f"groupnorm_silu backward, input {i}", a.grad, b.grad, 1e-3, 1e-3)
-
-    # Each GroupNorm launch alone at the largest main-path shape.
-    shape, dtype = (2, 128, 128, 512), torch.bfloat16
-    x, scale, bias, f = gn_inputs(gen, shape, dtype, True, dev)
-    g = effective_groups(shape[-1], 32)
-    part = hk.gn_stats_cuda(x, g)
-    torch.cuda.synchronize()
-    err = check_close(f"gn_stats {list(shape)} bf16, (count, mean, M2/count)", var_form(part),
-                      var_form(hk.gn_stats_plain(x, g)), 1e-4, 1e-4)
-    b_ms, b_by = bound(nbytes(x, part), fp32_flops=4 * x.numel())
-    xv = x.view(shape[0], -1, g, shape[-1] // g)
-    report["gn_stats"] = dict(
-        shape=list(shape), dtype="bfloat16", max_abs_err=err, tol="1e-4 + 1e-4|plain| on (count, mean, M2/count)",
-        ms=device_ms(lambda: hk.gn_stats_cuda(x, g), kernel="gn_stats_kernel"),
-        plain_ms=device_ms(lambda: hk.gn_stats_plain(x, g), 5),
-        library_ms=library_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0)),
-        bound_ms=b_ms, bound_by=b_by,
-    )
-    y = hk.gn_norm_cuda(x, part, scale, bias, film=f)
-    torch.cuda.synchronize()
-    err = check_close(f"gn_norm {list(shape)} bf16 film", y,
-                      hk.gn_norm_plain(x, part, scale, bias, film=f), 1e-2, 1e-2)
-    b_ms, b_by = bound(nbytes(x, y, part, scale, bias, *f), fp32_flops=12 * x.numel())
-    report["gn_norm"] = dict(
-        shape=list(shape), dtype="bfloat16", max_abs_err=err, tol="1e-2 + 1e-2|plain|",
-        ms=device_ms(lambda: hk.gn_norm_cuda(x, part, scale, bias, film=f), kernel="gn_norm_kernel"),
-        plain_ms=device_ms(lambda: hk.gn_norm_plain(x, part, scale, bias, film=f), 5),
-        library_ms=None,  # no one PyTorch call normalizes from given statistics
-        bound_ms=b_ms, bound_by=b_by,
-    )
 
     # Attention at the three main-path shapes (batch 2, head dim 64).
     for t, heads in ((1024, 8), (256, 12), (64, 16)):
@@ -255,12 +267,16 @@ def kernel_checks(hk, dev):
                            fp32_flops=4.0 * 2 * heads * t * t)
         say(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {lib_ms} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
+        rows["attention"].append(dict(shape=list(qkv.shape), heads=heads, ms=k_ms,
+                                      bound_ms=b_ms, library_ms=lib_ms))
         if t == 1024:
             report["attention"] = dict(
                 shape=list(qkv.shape), heads=heads, dtype="bfloat16", max_abs_err=err,
                 tol="2e-2", ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by,
             )
+    for name, r in rows.items():
+        report[name]["shapes"] = r
     return report
 
 
@@ -507,6 +523,7 @@ def main() -> None:
             launches=totals[name], max_abs_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
+            shapes=r["shapes"],
         ))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -115,10 +115,12 @@ def _load() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.ishape_gn_stats.argtypes = [p, p, i, i, i, i, i, i, i, p]
             lib.ishape_gn_stats.restype = i
-            lib.ishape_gn_norm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+            lib.ishape_gn_norm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, i, i, p]
             lib.ishape_gn_norm.restype = i
-            lib.ishape_attention.argtypes = [p, p, i, i, i, i, p]
+            lib.ishape_attention.argtypes = [p, p, i, i, i, i, i, p]
             lib.ishape_attention.restype = i
+            lib.ishape_attention_smem.argtypes = [i, i]
+            lib.ishape_attention_smem.restype = i
             lib.ishape_error_string.argtypes = [i]
             lib.ishape_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -149,14 +151,23 @@ def _check_device(t: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {t.device}: cpu (plain) or cuda (kernel)")
 
 
+# The card the launch shapes are sized for (H100 SXM).
+NUM_SMS = 132
+MAX_BLOCK_THREADS = 1024
+MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory one block may use
+
+
 # ---------------------------------------------------------------------------
 # GroupNorm + FiLM + SiLU
 # ---------------------------------------------------------------------------
 
 _GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GN_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte vector
 _GN_MAX_GROUPS = 1024
 _GN_TARGET_BLOCKS = 1024  # stats blocks in flight: ~8 per SM on 132 SMs
-_GN_TILE_ELEMS = 16384  # elements per normalize block
+_GN_NORM_THREADS = 512  # threads per normalize block, at most (the kernel's launch bound)
+_GN_NORM_BLOCKS_PER_SM = 2  # resident at once: one wave, each thread with 4 rows in flight
+_GN_NORM_MAX_BDX = 512  # channel vectors per block; wider C splits over grid y
 
 
 def groupnorm_silu_plain(x, scale, bias, num_groups=32, eps=1e-5, film=None):
@@ -178,6 +189,37 @@ def gn_splits(n: int, hw: int, groups: int) -> tuple:
     s = max(1, min(hw, -(-_GN_TARGET_BLOCKS // (n * groups))))
     rows = -(-hw // s)
     return -(-hw // rows), rows
+
+
+def gn_norm_geometry(n: int, hw: int, c: int, vec: int) -> dict:
+    """Launch shape of the ``gn_norm`` kernel for x [n, hw, c] with ``vec``
+    channels per thread: block (bdx, bdy), grid (row blocks, channel blocks,
+    n). Thread (tx, ty) of block (bx, cb) owns channel vector cb*bdx + tx and
+    rows bx*bdy + ty + k*row_step, k = 0, 1, ... (``csrc/groupnorm_silu.cu``).
+    About ``_GN_NORM_BLOCKS_PER_SM`` long-lived blocks per SM in all, so the
+    per-block prologue (merge the partials, fold the coefficients) is paid a
+    few hundred times per call."""
+    if c % vec:
+        raise ValueError(f"{c} channels are not whole vectors of {vec}")
+    vpr = c // vec
+    bdx = min(vpr, _GN_NORM_MAX_BDX)
+    bdy = max(1, _GN_NORM_THREADS // bdx)
+    grid_c = -(-vpr // bdx)
+    per_sample = -(-(_GN_NORM_BLOCKS_PER_SM * NUM_SMS) // (n * grid_c))
+    grid_x = max(1, min(-(-hw // bdy), per_sample))
+    return dict(
+        vec=vec, block=(bdx, bdy), grid=(grid_x, grid_c, n), row_step=grid_x * bdy,
+        smem_bytes=2 * 4 * _GN_MAX_GROUPS,  # group means and rstds, static
+    )
+
+
+def gn_vec(x: torch.Tensor, *outs: torch.Tensor) -> int:
+    """Channels per thread of ``gn_norm``: a 16-byte vector where C and the
+    pointers allow it, else 1."""
+    vec = _GN_VEC[x.dtype]
+    if x.shape[-1] % vec or any(t.data_ptr() % 16 for t in (x, *outs)):
+        return 1
+    return vec
 
 
 def gn_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -258,12 +300,13 @@ def gn_norm_cuda(x, part, scale, bias, eps=1e-5, film=None):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     y = torch.empty_like(x)
+    geo = gn_norm_geometry(n, h * w, c, gn_vec(x, y))
     lib = _load()
     _check(lib, lib.ishape_gn_norm(
         x.data_ptr(), y.data_ptr(), part.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), 0 if film_t is None else film_t.data_ptr(),
-        _GN_DTYPES[x.dtype], n, h * w, c, g, s, max(1, _GN_TILE_ELEMS // c), float(eps),
-        _stream(x),
+        _GN_DTYPES[x.dtype], n, h * w, c, g, s, float(eps), geo["vec"], *geo["block"],
+        *geo["grid"][:2], _stream(x),
     ), "gn_norm")
     LAUNCHES["gn_norm"] += 1
     return y
@@ -326,6 +369,26 @@ def groupnorm_silu(x, scale, bias, num_groups=32, eps=1e-5, film=None):
 # ---------------------------------------------------------------------------
 
 _ATTN_HEAD_DIMS = (32, 64, 128)
+_ATTN_ROWS = 64  # query rows per CTA (one consumer warpgroup)
+_ATTN_STAGES = 3  # K/V ring depth
+
+
+def attention_geometry(n: int, t: int, heads: int, ch: int) -> dict:
+    """Launch shape of the attention kernel (``csrc/attention.cu``): one CTA
+    of one consumer warpgroup (64 query rows) and one producer warp per
+    (query tile, batch*head); grid (query tiles, n*heads). K/V tiles of 128
+    keys, or 64 where T <= 64 (no half-empty tile) and at ch = 128
+    (registers). Shared memory: the Q tile, a 3-stage K/V ring, 1 KB of
+    alignment slack and the mbarriers, as ``smem_bytes<CH, KEYS>()``."""
+    if ch not in _ATTN_HEAD_DIMS:
+        raise ValueError(f"head dim {ch} not supported (kernel takes {_ATTN_HEAD_DIMS})")
+    keys = 64 if t <= 64 or ch == 128 else 128
+    return dict(
+        threads=128 + 32, grid=(-(-t // _ATTN_ROWS), n * heads),
+        keys_per_tile=keys, key_tiles=-(-t // keys),
+        smem_bytes=1024 + _ATTN_ROWS * ch * 2 + 2 * _ATTN_STAGES * keys * ch * 2
+        + 8 * (2 * _ATTN_STAGES + 1),
+    )
 
 
 def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -335,14 +398,15 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         raise ValueError(f"qkv {tuple(qkv.shape)} is not [N, T, {num_heads}*3*ch]")
     n, t, width = qkv.shape
     ch = width // (3 * num_heads)
-    if ch not in _ATTN_HEAD_DIMS:
-        raise ValueError(f"head dim {ch} not supported (kernel takes {_ATTN_HEAD_DIMS})")
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv must be 16-byte aligned")
+    geo = attention_geometry(n, t, num_heads, ch)
+    # The tensor map wants a 16-byte aligned base and row and sample strides
+    # that are multiples of 16 bytes.
+    if qkv.data_ptr() % 16 or (width * qkv.element_size()) % 16:
+        raise ValueError("qkv must be 16-byte aligned, with rows a multiple of 16 bytes")
     out = torch.empty((n, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
     lib = _load()
     _check(lib, lib.ishape_attention(
-        qkv.data_ptr(), out.data_ptr(), n, t, num_heads, ch, _stream(qkv)
+        qkv.data_ptr(), out.data_ptr(), n, t, num_heads, ch, geo["keys_per_tile"], _stream(qkv)
     ), "attention")
     LAUNCHES["attention"] += 1
     return out

@@ -61,6 +61,10 @@ def main(argv=None) -> None:
         busy = sum(e.self_device_time_total for e in events) / 1e3 / ITERS
         print(f"batch {batch}: forward {ms:.3f} ms (CUDA events); kernels busy {busy:.3f} ms "
               f"per forward (profiler), device idle {1 - busy / ms:.1%}")
+        for name in ("gn_stats_kernel", "gn_norm_kernel", "attention_kernel"):  # csrc/*.cu
+            rows = [e for e in events if name in e.key]
+            print(f"  {name}: {sum(e.self_device_time_total for e in rows) / 1e3 / ITERS:.3f} ms, "
+                  f"{sum(e.count for e in rows) // ITERS} launches per forward")
         events.sort(key=lambda e: -e.self_device_time_total)
         for e in events[: args.rows]:
             print(f"  {e.self_device_time_total / 1e3 / ITERS:9.3f} ms "

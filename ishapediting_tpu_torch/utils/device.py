@@ -79,11 +79,12 @@ def device_ms(fn: Callable[[], object], iters: int = 20, kernel: Optional[str] =
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in kernel_rows(prof) if kernel is None or kernel in e.key]
-    if not rows:
-        raise RuntimeError(f"no kernel {kernel!r} in the trace")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+    for _ in range(3):  # the profiler now and then returns a trace without device rows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in kernel_rows(prof) if kernel is None or kernel in e.key]
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+    raise RuntimeError(f"no kernel {kernel!r} in three traces")

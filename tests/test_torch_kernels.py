@@ -124,3 +124,188 @@ def test_attention_kernel_on_card(cuda_device, t, heads, ch):
     assert hk.LAUNCHES["attention"] == before + 1
     want = dense_qkv_attention(qkv, heads)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry (pure Python: runs here)
+# ---------------------------------------------------------------------------
+
+CHAIRS_WIDTHS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)
+
+
+def _covered_once(starts, step, total):
+    """Every index in [0, total) is start + k*step for exactly one start and k."""
+    hits = np.zeros(total, dtype=np.int64)
+    for s0 in starts:
+        hits[s0:total:step] += 1
+    return bool((hits == 1).all())
+
+
+@pytest.mark.parametrize("c", CHAIRS_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,hw", [(1, 8 * 8), (2, 16 * 16), (2, 64 * 64), (2, 128 * 128)])
+def test_gn_norm_geometry_chairs_widths(c, dtype, n, hw):
+    """At every chairs width each thread owns one whole 16-byte channel
+    vector, a block stays within 1024 threads and 227 KB, and the grid-stride
+    row walk visits every row of a sample exactly once."""
+    vec = hk._GN_VEC[dtype]
+    geo = hk.gn_norm_geometry(n, hw, c, vec)
+    bdx, bdy = geo["block"]
+    grid_x, grid_c, grid_n = geo["grid"]
+    assert geo["vec"] == vec and bdx * vec == c and grid_c == 1 and grid_n == n
+    assert 32 <= bdx * bdy <= min(hk.MAX_BLOCK_THREADS, hk._GN_NORM_THREADS)  # the launch bound
+    assert geo["smem_bytes"] <= hk.MAX_SMEM_BYTES
+    assert geo["row_step"] == grid_x * bdy
+    starts = [bx * bdy + ty for bx in range(grid_x) for ty in range(bdy)]
+    assert _covered_once(starts, geo["row_step"], hw)
+    assert grid_x * grid_c * n <= 4 * hk.NUM_SMS  # a few long-lived blocks per SM
+
+
+@pytest.mark.parametrize("c,vec,hw", [(24, 1, 60), (3000, 1, 10), (4096, 4, 64), (64, 8, 1)])
+def test_gn_norm_geometry_generic(c, vec, hw):
+    """Narrow, unvectorised and very wide C: the channel blocks cover C's
+    vectors once, every block is a legal launch, every row is visited once."""
+    geo = hk.gn_norm_geometry(1, hw, c, vec)
+    bdx, bdy = geo["block"]
+    grid_x, grid_c, _ = geo["grid"]
+    assert 32 <= bdx * bdy <= hk.MAX_BLOCK_THREADS
+    vectors = [cb * bdx + tx for cb in range(grid_c) for tx in range(bdx) if (cb * bdx + tx) * vec < c]
+    assert sorted(vectors) == list(range(c // vec))
+    starts = [bx * bdy + ty for bx in range(grid_x) for ty in range(bdy)]
+    assert _covered_once(starts, geo["row_step"], hw)
+
+
+def test_gn_norm_geometry_refuses_partial_vectors():
+    with pytest.raises(ValueError, match="vectors"):
+        hk.gn_norm_geometry(1, 4, 20, 8)
+
+
+ATTN_SHAPES = [(2, 1024, 8, 64), (2, 256, 12, 64), (2, 64, 16, 64), (1, 1024, 8, 64),
+               (1, 256, 12, 64), (1, 64, 16, 64)] + [
+    (2, t, 2, ch) for t in (1, 65, 77, 100) for ch in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("n,t,heads,ch", ATTN_SHAPES)
+def test_attention_geometry(n, t, heads, ch):
+    """Each query row belongs to exactly one CTA's 64-row tile, no CTA lies
+    wholly past T, the key tiles cover T, and a block stays within 1024
+    threads and 227 KB."""
+    geo = hk.attention_geometry(n, t, heads, ch)
+    assert geo["threads"] == 128 + 32 <= hk.MAX_BLOCK_THREADS
+    assert geo["smem_bytes"] <= hk.MAX_SMEM_BYTES
+    qtiles, bh = geo["grid"]
+    assert bh == n * heads
+    rows = np.zeros(t, dtype=np.int64)
+    for bx in range(qtiles):
+        rows[bx * 64:bx * 64 + 64] += 1
+    assert (rows == 1).all() and (qtiles - 1) * 64 < t
+    keys = geo["keys_per_tile"]
+    assert keys in (64, 128) and geo["key_tiles"] * keys >= t > (geo["key_tiles"] - 1) * keys
+
+
+def test_attention_geometry_fills_the_card_at_the_main_path():
+    """T = 1024 at batch 2 (B*H = 16): 256 CTAs, two of which fit on each of
+    the 132 SMs (registers: 160 threads; shared memory under half of an
+    SM's 228 KB), so one wave covers them; 128-key tiles except at T = 64."""
+    geo = hk.attention_geometry(2, 1024, 8, 64)
+    assert geo["grid"][0] * geo["grid"][1] == 256 <= 2 * hk.NUM_SMS
+    assert 2 * geo["smem_bytes"] <= 228 * 1024
+    assert geo["keys_per_tile"] == 128
+    assert hk.attention_geometry(2, 256, 12, 64)["keys_per_tile"] == 128
+    assert hk.attention_geometry(2, 64, 16, 64)["keys_per_tile"] == 64
+    with pytest.raises(ValueError, match="head dim"):
+        hk.attention_geometry(2, 64, 2, 48)
+
+
+# ---------------------------------------------------------------------------
+# Redesigned kernels on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 65, 77, 100])
+def test_attention_ragged_lengths_on_card(cuda_device, t, ch):
+    """T not a multiple of the 64-key tile: TMA zero-fills rows past T per
+    sample and the softmax masks those keys. bf16, |kernel - plain| <= 2e-2."""
+    rng = np.random.default_rng(t * 1000 + ch)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, 2 * 3 * ch)).astype(np.float32))
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    got = hk.attention_qkv(qkv, 2)
+    torch.cuda.synchronize()
+    want = dense_qkv_attention(qkv, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+def test_attention_large_logits_on_card(cuda_device):
+    """Inputs x8: logits of tens to hundreds, so the running max grows across
+    key tiles and the online rescaling matters. Against the fp32 composition
+    on the same bf16 inputs (the bf16 plain version rounds such logits by
+    whole units): atol 2e-2 x 8 (V is 8x larger), rtol 1e-2 (one bf16
+    rounding of the output)."""
+    rng = np.random.default_rng(12)
+    qkv = torch.from_numpy(rng.normal(size=(2, 1024, 8 * 3 * 64)).astype(np.float32) * 8)
+    qkv = qkv.to(cuda_device, torch.bfloat16)
+    got = hk.attention_qkv(qkv, 8)
+    torch.cuda.synchronize()
+    want = dense_qkv_attention(qkv.float(), 8)
+    assert got.isfinite().all()
+    torch.testing.assert_close(got.float(), want, atol=0.16, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,heads,ch", [(2, 1024, 8, 64), (2, 64, 16, 64), (2, 100, 2, 128),
+                                         (2, 77, 2, 32), (2, 1, 2, 32)])
+def test_attention_geometry_matches_the_library(cuda_device, n, t, heads, ch):
+    """The Python mirror of the kernel's shared-memory size is the library's."""
+    geo = hk.attention_geometry(n, t, heads, ch)
+    assert hk._load().ishape_attention_smem(ch, geo["keys_per_tile"]) == geo["smem_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("c", CHAIRS_WIDTHS)
+def test_groupnorm_silu_chairs_widths_on_card(cuda_device, c, film):
+    """Every chairs width in bf16, each launch alone and both together, at
+    the tolerances of the tests above."""
+    x, scale, bias, f = _gn_inputs(c, (2, 16, 16, c), film)
+    dev = cuda_device
+    xt = torch.from_numpy(x).to(dev, torch.bfloat16)
+    args = (torch.from_numpy(scale).to(dev), torch.from_numpy(bias).to(dev))
+    ft = None if f is None else tuple(torch.from_numpy(a).to(dev, torch.bfloat16) for a in f)
+    g = hk.effective_groups(c, 32)
+    part = hk.gn_stats_cuda(xt, g)
+    got = hk.gn_norm_cuda(xt, part, *args, film=ft)
+    torch.cuda.synchronize()
+    want = hk.gn_norm_plain(xt, part, *args, film=ft)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    whole = hk.groupnorm_silu(xt, *args, film=ft)
+    torch.cuda.synchronize()
+    want = hk.groupnorm_silu_plain(xt, *args, film=ft)
+    torch.testing.assert_close(whole.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_silu_large_negative_on_card(cuda_device, dtype):
+    """Pre-activations from about -300 to +50 (FiLM shift far below zero):
+    the fast SiLU stays finite (-0 where e^-t overflows) and matches the
+    plain version in fp32 arithmetic with one cast at the end (the bf16
+    composition rounds FiLM terms of size 30 to 0.125 before they cancel):
+    fp32 1e-5 + 1e-5|plain|, bf16 one rounding, 1e-2 + 1e-2|plain|; the
+    fp32 output head shape."""
+    shape = (2, 16, 16, 256)
+    x, scale, bias, f = _gn_inputs(21, shape, True)
+    dev = cuda_device
+    xt = torch.from_numpy(x * 4).to(dev, dtype)
+    args = (torch.from_numpy(scale * 10).to(dev), torch.from_numpy(bias).to(dev))
+    shift = np.linspace(-250.0, 0.0, shape[-1], dtype=np.float32)[None].repeat(2, 0)
+    ft = (torch.from_numpy(f[0]).to(dev, dtype), torch.from_numpy(shift).to(dev, dtype))
+    got = hk.groupnorm_silu(xt, *args, film=ft)
+    torch.cuda.synchronize()
+    assert got.isfinite().all()
+    part = hk.gn_stats_plain(xt, hk.effective_groups(shape[-1], 32))
+    want = hk.gn_norm_plain(xt, part, *args, film=ft)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
