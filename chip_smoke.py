@@ -8,18 +8,27 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. build the Hopper kernels (``ishapediting_tpu_torch/csrc``, nvcc) and the
    native meshing library (g++) from the checkout's sources into ``build/``;
 2. hold every kernel against its plain PyTorch version at the main path's
-   shapes and types, and time kernel, plain version, the closest PyTorch
-   library call, and the least time the card could take (``bound_ms``);
+   shapes and types (the generic attention kernel in fp32 at the chairs
+   shapes and at the tiny preset's head dim 8, and in bf16 at head dim 8),
+   and time kernel, plain version, the closest PyTorch library call, and
+   the least time the card could take (``bound_ms``);
 3. check the whole UNet on the card against the same module on the CPU
-   (plain versions) on a small input;
+   (plain versions) on a small input: a bf16 torso at head dim 64 (the
+   wgmma attention kernel), then the ``tiny`` preset (fp32 torso, head dim
+   8: the generic attention kernel, ``gn_stats`` at one channel per group)
+   to a relative L2 error of 1e-4; then the fp32 path end to end:
+   ``DragEngine(preset("tiny"), device="cuda").update_latent_params``;
 4. the main path at the published chairs width (421M parameters, bf16
    torso, random weights from a seed; only step counts are cut):
    ``cli.generate`` with DDIM and with DPM-Solver++(2M), 10 steps, 2 samples
    at batch 2, 256^3 meshes; then ``DragEngine.update_latent_params`` on a
-   20-step chain with its guidance-feature cache and its 256^3 mesh. The
-   launch counters are reset just before each run and read just after it;
-   each must equal the UNet forwards of that run times the kernel's calls
-   per forward;
+   20-step chain with its guidance-feature cache and its 256^3 mesh; then
+   each kernel's device ms, launches and summed bound per chairs forward at
+   batch 1 and 2 (``tools/profile_unet.py::kernel_accounting``);
+   in every run of phases 3 and 4 the launch counters are reset just before
+   it and read just after it, and each must equal the UNet forwards of that
+   run times the kernel's calls per forward (chairs runs launch no generic
+   attention, the tiny run no wgmma attention);
 5. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -47,20 +56,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 TIME_LIMIT_S = 1100  # the run must end well inside 1200 s, build included
 
-# Published peaks of one H100 SXM (NVIDIA data sheet; dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
-BF16_TENSOR_FLOPS = 989e12
-FP32_FLOPS = 67e12
-
 TPU_KERNELS = {
     "gn_stats": "ishapediting_tpu/ops/pallas_kernels.py:109",
     "gn_norm": "ishapediting_tpu/ops/pallas_kernels.py:126",
     "attention": "ishapediting_tpu/ops/pallas_kernels.py:259",
+    "attention_generic": "ishapediting_tpu/ops/pallas_kernels.py:259",
 }
 SOURCES = {
     "gn_stats": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
     "gn_norm": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
     "attention": "ishapediting_tpu_torch/csrc/attention.cu",
+    "attention_generic": "ishapediting_tpu_torch/csrc/attention_generic.cu",
 }
 
 
@@ -117,17 +123,6 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def bound(bytes_moved: float, tensor_flops: float = 0.0, fp32_flops: float = 0.0):
-    """(least ms, what bounds it): bytes over HBM rate against operations
-    over the peak rate of their type."""
-    times = {
-        "bytes": bytes_moved / HBM_BYTES_PER_S,
-        "operations": max(tensor_flops / BF16_TENSOR_FLOPS, fp32_flops / FP32_FLOPS),
-    }
-    by = max(times, key=times.get)
-    return times[by] * 1e3, by
-
-
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -172,7 +167,7 @@ def var_form(part):
 def kernel_checks(hk, dev):
     from ishapediting_tpu_torch.ops.attention import dense_qkv_attention
     from ishapediting_tpu_torch.ops.nn import effective_groups
-    from ishapediting_tpu_torch.utils.device import device_ms
+    from ishapediting_tpu_torch.utils.device import bound_ms, device_ms
 
     gen = torch.Generator(device=dev).manual_seed(0)
     report = {}
@@ -198,7 +193,7 @@ def kernel_checks(hk, dev):
         p_ms = device_ms(lambda: hk.groupnorm_silu_plain(x, scale, bias, film=f), 5)
         xn = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         lib_ms = library_ms(lambda: F.silu(F.group_norm(xn, 32, scale.to(dtype), bias.to(dtype))))
-        b_ms, _ = bound(2 * nbytes(x))
+        b_ms, _ = bound_ms(2 * nbytes(x))
         say(f"    both launches {both_ms:.4f} ms, plain {p_ms:.4f} ms, "
             f"F.group_norm+F.silu {lib_ms} ms, bound {b_ms:.4f} ms")
 
@@ -207,7 +202,7 @@ def kernel_checks(hk, dev):
         torch.cuda.synchronize()
         err_s = check_close(f"gn_stats {tag}, (count, mean, M2/count)", var_form(part),
                             var_form(hk.gn_stats_plain(x, g)), 1e-4, 1e-4)
-        sb_ms, sb_by = bound(nbytes(x, part), fp32_flops=4 * x.numel())
+        sb_ms, sb_by = bound_ms(nbytes(x, part), fp32_flops=4 * x.numel())
         xv = x.view(shape[0], -1, g, shape[-1] // g)
         s_ms = device_ms(lambda: hk.gn_stats_cuda(x, g), kernel="gn_stats_kernel")
         s_lib = library_ms(lambda: torch.var_mean(xv, dim=(1, 3), correction=0))
@@ -216,7 +211,7 @@ def kernel_checks(hk, dev):
         n_tol = 1e-2 if dtype == torch.bfloat16 else 1e-5  # one rounding of x's dtype
         err_n = check_close(f"gn_norm {tag}", y,
                             hk.gn_norm_plain(x, part, scale, bias, film=f), n_tol, n_tol)
-        nb_ms, nb_by = bound(nbytes(x, y, part, scale, bias, *(f or ())),
+        nb_ms, nb_by = bound_ms(nbytes(x, y, part, scale, bias, *(f or ())),
                              fp32_flops=12 * x.numel())
         n_ms = device_ms(lambda: hk.gn_norm_cuda(x, part, scale, bias, film=f),
                          kernel="gn_norm_kernel")
@@ -263,7 +258,7 @@ def kernel_checks(hk, dev):
         k_ms = device_ms(lambda: hk.attention_qkv(qkv, heads), kernel="attention_kernel")
         p_ms = device_ms(lambda: dense_qkv_attention(qkv, heads), 5)
         lib_ms = library_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5))
-        b_ms, b_by = bound(nbytes(qkv, got), tensor_flops=4.0 * 2 * heads * t * t * ch,
+        b_ms, b_by = bound_ms(nbytes(qkv, got), tensor_flops=4.0 * 2 * heads * t * t * ch,
                            fp32_flops=4.0 * 2 * heads * t * t)
         say(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {lib_ms} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
@@ -273,6 +268,37 @@ def kernel_checks(hk, dev):
             report["attention"] = dict(
                 shape=list(qkv.shape), heads=heads, dtype="bfloat16", max_abs_err=err,
                 tol="2e-2", ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by,
+            )
+
+    # The generic kernel: fp32 at the chairs shapes and at the tiny preset's
+    # head dim 8, bf16 at head dim 8 (the dtypes and head dims the wgmma
+    # kernel does not take). Bound: bytes, or fp32 FMA at 67 TFLOP/s.
+    rows["attention_generic"] = []
+    for t, heads, ch, dtype in ((1024, 8, 64, torch.float32), (256, 12, 64, torch.float32),
+                                (64, 16, 64, torch.float32), (64, 4, 8, torch.float32),
+                                (64, 4, 8, torch.bfloat16)):
+        qkv = torch.randn((2, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
+        dname = str(dtype)[6:]
+        got = hk.attention_qkv(qkv, heads)
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        err = check_close(f"attention_generic T={t} H={heads} ch={ch} {dname}", got,
+                          dense_qkv_attention(qkv, heads), tol, 0.0)
+        q, k, v = qkv.view(2, t, heads, 3, ch).permute(3, 0, 2, 1, 4).unbind(0)
+        k_ms = device_ms(lambda: hk.attention_qkv(qkv, heads), kernel="attention_generic_kernel")
+        p_ms = device_ms(lambda: dense_qkv_attention(qkv, heads), 5)
+        lib_ms = library_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5))
+        b_ms, b_by = bound_ms(nbytes(qkv, got), fp32_flops=4.0 * 2 * heads * t * t * ch)
+        say(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {lib_ms} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        rows["attention_generic"].append(dict(shape=list(qkv.shape), heads=heads, dtype=dname,
+                                              ms=k_ms, bound_ms=b_ms, library_ms=lib_ms,
+                                              plain_ms=p_ms, max_abs_err=err))
+        if "attention_generic" not in report:
+            report["attention_generic"] = dict(
+                shape=list(qkv.shape), heads=heads, dtype=dname, max_abs_err=err,
+                tol="1e-4 (fp32), 2e-2 (bf16)", ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by,
             )
     for name, r in rows.items():
@@ -285,37 +311,41 @@ def kernel_checks(hk, dev):
 # ---------------------------------------------------------------------------
 
 
-def unet_reference_check(dev):
-    from ishapediting_tpu_torch.config import UNetConfig
-    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
+def unet_card_check(hk, dev, cfg, tol, what):
+    """One UNet forward on the card (kernels) against the same module on
+    the CPU (plain versions), small input: relative L2 error of the output
+    and the feature tap <= ``tol``, and the launch counts of one forward."""
+    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_, kernel_calls_per_forward
 
-    say("[3] UNet on the card (kernels) against the CPU (plain versions), small input")
-    cfg = UNetConfig(
-        image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
-        attention_ds=(2,), channel_mult=(1, 2), num_head_channels=64, dropout=0.0,
-    )
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(5)
     model = init_unet_(UNetModel(cfg), gen).eval()
     with torch.no_grad():  # give the zero modules signal, so every path carries it
-        for name, p in model.named_parameters():
+        for p in model.parameters():
             if not p.any():
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
-    x = torch.randn((2, 16, 16, 6), generator=gen)
+    x = torch.randn((2, cfg.image_size, cfg.image_size, cfg.in_channels), generator=gen)
     t = torch.tensor([3, 700])
     with torch.no_grad():
         out_c, feat_c = model(x, t, feat_layer=1)
         model.to(dev)
+        hk.reset_launch_counts()
         out_g, feat_g = model(x.to(dev), t.to(dev), feat_layer=1)
     torch.cuda.synchronize()
+    gn, attn = kernel_calls_per_forward(cfg)
+    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": 0}
+    want[hk.attention_route(cfg.torch_compute_dtype, cfg.num_head_channels)] = attn
+    say(f"  {what}: launches {dict(hk.LAUNCHES)} (want {want})")
+    if dict(hk.LAUNCHES) != want:
+        fail(f"UNet ({what}) launches {dict(hk.LAUNCHES)} are not {want}")
     for name, a, b in (("output", out_g, out_c), ("feature tap", feat_g, feat_c)):
         a = a.to(cpu).float()
         rel = float((a - b).norm() / b.norm())
-        ok = rel < 3e-2 and bool(a.isfinite().all()) and a.shape == b.shape
-        say(f"  {name} {list(a.shape)}: relative L2 error {rel:.3e} (tol 3e-2, bf16 torso) "
+        ok = rel <= tol and bool(a.isfinite().all()) and a.shape == b.shape
+        say(f"  {name} {list(a.shape)}: relative L2 error {rel:.3e} (tol {tol:g}, {what}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"UNet {name} on the card disagrees with the CPU")
+            fail(f"UNet ({what}) {name} on the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -339,9 +369,13 @@ class ForwardCounter:
         self._handle.remove()
 
 
-def check_counts(hk, phase, forwards, per_fwd, totals):
+def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention"):
+    """Launches of the run just made: each GroupNorm-SiLU call launches
+    gn_stats and gn_norm, each attention call ``attn_kernel`` only."""
     gn, attn = per_fwd
-    want = {"gn_stats": gn * forwards, "gn_norm": gn * forwards, "attention": attn * forwards}
+    want = {"gn_stats": gn * forwards, "gn_norm": gn * forwards, "attention": 0,
+            "attention_generic": 0}
+    want[attn_kernel] = attn * forwards
     got = dict(hk.LAUNCHES)
     say(f"  launches in {phase}: {got} for {forwards} UNet forwards (want {want})")
     if forwards <= 0 or got != want:
@@ -394,18 +428,14 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
     return sample_s
 
 
-def run_engine(hk, counter, per_fwd, totals, preset_name="chairs", device="cuda",
-               res=256, feat_layer=8):
+def run_engine(hk, counter, per_fwd, totals, cfg, label, phase="engine",
+               attn_kernel="attention", device="cuda"):
     import numpy as np
 
-    from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.edit.engine import DragEngine
 
-    cfg = preset(preset_name, 20)
-    cfg = dataclasses.replace(cfg, edit=dataclasses.replace(
-        cfg.edit, w_time=10, feat_layer=feat_layer, shape_resolution=res))
-    say("  DragEngine(preset('chairs', 20), w_time=10, feat_layer=8).update_latent_params(seed=0)"
-        " -> get_mesh at 256^3")
+    res = cfg.edit.shape_resolution
+    say(f"  DragEngine({label}).update_latent_params(seed=0) -> get_mesh at {res}^3")
     engine = DragEngine(cfg, seed=0, device=device)
     sync()
     hk.reset_launch_counts()
@@ -414,19 +444,20 @@ def run_engine(hk, counter, per_fwd, totals, preset_name="chairs", device="cuda"
     lat = engine.update_latent_params(seed=0)
     sync()
     wall = time.perf_counter() - t0
-    check_counts(hk, "engine", counter.n, per_fwd, totals)
+    check_counts(hk, phase, counter.n, per_fwd, totals, attn_kernel)
     feats = engine.feature_guidance
     walls = engine.last_mesh_walls
     ok = (
         lat.shape == (1,) + cfg.latent_shape and np.isfinite(lat).all()
-        and feats is not None and feats.shape[0] == 10 and bool(feats.float().isfinite().all())
+        and feats is not None and feats.shape[0] == cfg.edit.w_time
+        and bool(feats.float().isfinite().all())
         and len(engine.mesh.vertices) > 0 and len(engine.mesh.triangles) > 0
     )
-    say(f"  engine: latent {lat.shape}, guidance cache {list(feats.shape)} {feats.dtype}, "
+    say(f"  {phase}: latent {lat.shape}, guidance cache {list(feats.shape)} {feats.dtype}, "
         f"mesh {len(engine.mesh.vertices)} vertices / {len(engine.mesh.triangles)} triangles, "
         f"mesh walls {json.dumps({k: round(v, 3) for k, v in walls.items()})}, wall {wall:.1f} s")
     if not ok:
-        fail("engine: latent, guidance features or mesh not as expected")
+        fail(f"{phase}: latent, guidance features or mesh not as expected")
     return engine
 
 
@@ -439,6 +470,29 @@ def unet_forward_ms(engine, batch):
     t = torch.full((batch,), 500, device=engine.device, dtype=torch.long)
     with torch.no_grad():
         return cuda_ms(lambda: engine.unet(x, t), 5)
+
+
+def forward_accounting(engine) -> dict:
+    """Each kernel's device ms, launches and summed bound per chairs forward
+    at batch 1 and 2, with the shapes recorded during the forward."""
+    from ishapediting_tpu_torch.tools.profile_unet import kernel_accounting
+
+    out = {}
+    for batch in (1, 2):
+        shape = (batch,) + engine.config.latent_shape
+        x = torch.randn(shape, device=engine.device)
+        t = torch.full((batch,), 500, device=engine.device, dtype=torch.long)
+
+        def fwd():
+            with torch.no_grad():
+                engine.unet(x, t)
+
+        acc = kernel_accounting(fwd)
+        out[f"batch{batch}"] = acc["kernels"]
+        for name, k in acc["kernels"].items():
+            say(f"  per chairs forward, batch {batch}: {name} {k['ms']:.4f} ms, "
+                f"{k['launches']} launches, summed bound {k['bound_ms']:.4f} ms")
+    return out
 
 
 def ddim_steady_s(engine) -> float:
@@ -470,7 +524,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs one CUDA card")
     from ishapediting_tpu_torch import native
     from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
-    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.config import UNetConfig, preset
     from ishapediting_tpu_torch.ops import hopper_kernels as hk
     from ishapediting_tpu_torch.utils.device import set_cuda_flags
 
@@ -495,18 +549,34 @@ def main() -> None:
     set_cuda_flags()
 
     report = kernel_checks(hk, dev)
-    unet_reference_check(dev)
+    say("[3] UNet on the card (kernels) against the CPU (plain versions), small input")
+    unet_card_check(hk, dev, UNetConfig(
+        image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
+        attention_ds=(2,), channel_mult=(1, 2), num_head_channels=64, dropout=0.0,
+    ), 3e-2, "bf16 torso, head dim 64")
+    unet_card_check(hk, dev, preset("tiny").unet, 1e-4, "tiny preset: fp32 torso, head dim 8")
+    counter = ForwardCounter(UNetModel)
+    totals: dict = {}
+    tiny = preset("tiny")
+    tiny_fwd = kernel_calls_per_forward(tiny.unet)
+    say(f"  tiny per UNet forward: {tiny_fwd[0]} GroupNorm-SiLU calls, {tiny_fwd[1]} attention "
+        f"calls ({hk.attention_route(tiny.unet.torch_compute_dtype, tiny.unet.num_head_channels)})")
+    run_engine(hk, counter, tiny_fwd, totals, tiny, "preset('tiny')", "tiny engine",
+               attn_kernel="attention_generic")
 
     say("[4] main path, published chairs config at full width, random weights "
         "(step counts cut to 10/10/20; widths as published)")
-    per_fwd = kernel_calls_per_forward(preset("chairs").unet)
+    chairs = preset("chairs", 20)
+    per_fwd = kernel_calls_per_forward(chairs.unet)
     say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
-    counter = ForwardCounter(UNetModel)
-    totals: dict = {}
     ddim_s = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim")
     run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
-    engine = run_engine(hk, counter, per_fwd, totals)
+    chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
+        chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
+    engine = run_engine(hk, counter, per_fwd, totals, chairs,
+                        "preset('chairs', 20), w_time=10, feat_layer=8")
     counter.close()
+    per_forward = forward_accounting(engine)
     fwd_ms = {b: unet_forward_ms(engine, b) for b in (1, 2)}
     steady_s = ddim_steady_s(engine)
     say(f"  chairs UNet forward (steady state, CUDA events): batch 1 {fwd_ms[1]:.2f} ms, "
@@ -516,14 +586,16 @@ def main() -> None:
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     kernels = []
-    for name in ("gn_stats", "gn_norm", "attention"):
+    for name in ("gn_stats", "gn_norm", "attention", "attention_generic"):
         r = report[name]
+        if totals.get(name, 0) <= 0:
+            fail(f"{name} was not launched by the main-path runs")
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],
             launches=totals[name], max_abs_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
-            shapes=r["shapes"],
+            shapes=r["shapes"], per_forward={b: per_forward[b][name] for b in per_forward},
         ))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

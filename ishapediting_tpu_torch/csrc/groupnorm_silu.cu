@@ -13,10 +13,33 @@
 //
 // Design. CUDA blocks run in parallel and in no order, so the TPU's carried
 // accumulator does not translate. Two launches instead:
-//   1. gn_stats: one block per (n, group, row split). Each block reduces its
-//      slice to fp32 (count, mean, M2) and writes it to a [N, G, S, 3]
-//      scratch. Splitting rows keeps ~1000 blocks in flight even at batch 1
-//      (N*G = 32 groups alone would leave most of the 132 SMs idle).
+//   1. gn_stats: the block shape of gn_norm, blockDim = (C/VEC, rows), with
+//      long-lived blocks. Each thread owns one 16-byte channel vector (8 bf16
+//      or 4 fp32; cg % VEC == 0, so all its channels lie in one group) for
+//      its whole life and walks the rows with a grid stride, four rows in
+//      flight, so a warp reads contiguous 128-byte lines of NHWC rows
+//      whatever cg is. Per element there is no divide: every thread sums
+//      d = x - p and d^2, where the pivot p is the group's value at row 0,
+//      one pivot for the whole (sample, group). The shift is what keeps
+//      Chan's precision: p lies within the group's spread, so
+//      sum(d^2) - sum(d)^2/n cancels no more than M2 itself (the cancellation
+//      of E[x^2] - E[x]^2 comes from a mean far from zero, which the shift
+//      removes). With one pivot, merging threads, blocks and CTAs is a plain
+//      sum: per group, a warp adds its threads' sums in shared memory and
+//      divides once, so each block writes one (count, mean, M2) partial per
+//      group, at most 32 blocks per sample. Where 32 blocks would leave each
+//      thread many rows (the 64^2 and 128^2 inputs), the blocks of a sample
+//      form thread block clusters along the rows: each CTA stores its group
+//      sums into the leader's shared memory (distributed shared memory,
+//      map_shared_rank), and after one cluster barrier the leader adds them
+//      (a lane per CTA) and writes the partial, so there are still at most 32
+//      per (sample, group). A cluster launch costs about 1 us of device time
+//      on an H100 (PERF.md), so smaller inputs take a plain launch. No
+//      atomics: the same result on every run. Partials: fp32 [N, G, S, 3].
+//      Unaligned inputs and cg % VEC != 0 take VEC = 1, one channel per
+//      thread; widths whose vectors do not fit one block split C over
+//      blockIdx.y, and each channel block writes its own partials (count 0
+//      for the groups it does not touch).
 //   2. gn_norm: a streaming FMA + SiLU. Long-lived blocks of up to 512
 //      threads, two per SM (2 x 132 in all, one wave); each thread owns one
 //      channel vector (8 bf16 or 4 fp32, 16-byte loads and stores along C)
@@ -41,13 +64,18 @@
 // x is read twice (once per pass); at the main path's sizes (up to 32 MB per
 // call) the second read is partly served from the 50 MB L2.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kStatsThreads = 1024;  // most threads of a gn_stats block
+constexpr int kMaxCluster = 8;       // CTAs per cluster, at most (the portable size)
+constexpr int kMaxPushBytes = 227 * 1024 - 16 * kStatsThreads;  // gn_stats dynamic smem, at most
 constexpr int kNormThreads = 512;  // most threads of a gn_norm block
 constexpr int kMaxGroups = 1024;
 
@@ -65,12 +93,49 @@ __device__ __forceinline__ void chan_merge(Stat& a, const Stat& b) {
   a.n = n;
 }
 
+// Sums of a (sample, group) around its pivot: count, sum(x - p),
+// sum((x - p)^2). Merged by adding.
+struct Sums {
+  float n, s1, s2;
+  __device__ __forceinline__ Sums& operator+=(const Sums& o) {
+    n += o.n;
+    s1 += o.s1;
+    s2 += o.s2;
+    return *this;
+  }
+};
+
+__device__ __forceinline__ Sums warp_sum(Sums a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a.n += __shfl_down_sync(0xffffffffu, a.n, off);
+    a.s1 += __shfl_down_sync(0xffffffffu, a.s1, off);
+    a.s2 += __shfl_down_sync(0xffffffffu, a.s2, off);
+  }
+  return a;
+}
+
 __device__ __forceinline__ Stat shfl_down_stat(const Stat& s, int off) {
   Stat o;
   o.n = __shfl_down_sync(0xffffffffu, s.n, off);
   o.mean = __shfl_down_sync(0xffffffffu, s.mean, off);
   o.m2 = __shfl_down_sync(0xffffffffu, s.m2, off);
   return o;
+}
+
+__device__ __forceinline__ float load_scalar(const float* p) { return *p; }
+__device__ __forceinline__ float load_scalar(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// Thread block cluster barrier, split: arrive (relaxed: orders nothing; or
+// release) now, wait (acquire) later. Every thread of every CTA calls both.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Raw 16-byte (or one-element) vectors, kept packed while a load is in
@@ -141,56 +206,129 @@ __device__ __forceinline__ float silu_fast(float t) {
   return t * __fdividef(1.f, 1.f + __expf(-t));
 }
 
-// Pass 1. grid (S, G, N); block reduces rows [s*rows, (s+1)*rows) of group g
-// of sample n to (count, mean, M2) at part[((n*G + g)*S + s)*3].
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part, int HW, int C,
-                int G, int S, int rows_per_split) {
-  const int s = blockIdx.x, g = blockIdx.y, n = blockIdx.z;
-  const int cg = C / G;
-  const int vpr = cg / VEC;  // vectors per row within the group
-  const int r0 = s * rows_per_split;
-  const int r1 = min(HW, r0 + rows_per_split);
-  const long long nvec = (long long)max(0, r1 - r0) * vpr;
-  const T* base = x + ((long long)n * HW + r0) * C + (long long)g * cg;
+// (count, mean, M2) of one (sample, group) partial from its sums around
+// the pivot p; zeros for a group with no elements here.
+__device__ __forceinline__ void write_partial(float* out, const Sums& a, float p) {
+  const float sh = a.n > 0.f ? a.s1 / a.n : 0.f;
+  out[0] = a.n;
+  out[1] = a.n > 0.f ? p + sh : 0.f;
+  out[2] = fmaxf(0.f, a.s2 - a.s1 * sh);
+}
 
-  Stat acc = {0.f, 0.f, 0.f};
-  for (long long i = threadIdx.x; i < nvec; i += kThreads) {
-    const long long r = i / vpr;
-    const int v = (int)(i - r * vpr);
-    float vals[VEC];
-    load_vec<T, VEC>(base + r * C + v * VEC, vals);
-    float sum = 0.f;
+// Pass 1. Block (bdx, bdy), grid (grid_x row blocks, grid_c channel
+// blocks, N); with CLUSTER, clusters of cs blocks along x. Thread (tx, ty)
+// of block (bx, cb) owns channel vector v = cb*bdx + tx and rows
+// bx*bdy + ty + k*step, step = grid_x*bdy, as in gn_norm. Partial
+// s = cb*clusters + bx/cs (cs = 1 without CLUSTER) of every group g goes to
+// part[((n*G + g)*S + s)*3].
+template <typename T, int VEC, bool CLUSTER>
+__global__ void __launch_bounds__(kStatsThreads)
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part, int HW, int C, int G, int S,
+                int clusters) {
+  __shared__ Sums s_thr[kStatsThreads];  // one per thread, column tx*bdy + ty
+  __shared__ float s_piv[kStatsThreads];  // the pivot of each group touched
+  extern __shared__ Sums s_push[];        // CLUSTER, the leader's: [rank][group touched]
+  if (CLUSTER) cluster_arrive_relaxed();  // this CTA has started; waited on before remote stores
+  const int n = blockIdx.z;
+  const int vpr = C / VEC;  // a row, in vectors
+  const int cgs = C / G;
+  const int v0 = blockIdx.y * blockDim.x;
+  const int v1 = min(vpr, v0 + (int)blockDim.x);
+  const int g_lo = v0 * VEC / cgs, g_hi = (v1 * VEC - 1) / cgs;  // groups this block touches
+  const int v = v0 + threadIdx.x;
+  const bool owner = v < vpr;
+  const T* xn = x + (long long)n * HW * C;
+
+  // Sums of d = x - p and d^2 over this thread's channels and rows, where
+  // the pivot p is the group's value at row 0 (shared by every thread and
+  // block of the (sample, group)): no divide per element, and merging is a
+  // plain sum. One division per group at the end gives the mean p + s1/n
+  // and M2 = s2 - s1^2/n.
+  using Raw = typename RawVec<T, VEC>::type;
+  const long long step = (long long)gridDim.x * blockDim.y;
+  const Raw* xs = reinterpret_cast<const Raw*>(xn + (long long)v * VEC);
+  long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  float s1[VEC], s2[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) sum += vals[k];
-    Stat loc;
-    loc.n = (float)VEC;
-    loc.mean = sum / VEC;
-    loc.m2 = 0.f;
+  for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
+  int rows = 0;
+  const int g_own = v * VEC / cgs;
+  const float p = owner ? load_scalar(xn + g_own * cgs) : 0.f;
+  for (; owner && r < HW; r += 4 * step) {
+    Raw u[4];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      float d = vals[k] - loc.mean;
-      loc.m2 += d * d;
+    for (int i = 0; i < 4; ++i) u[i] = r + i * step < HW ? xs[(r + i * step) * vpr] : Raw{};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (r + i * step >= HW) break;
+      float w[VEC];
+      unpack(u[i], w);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float d = w[k] - p;
+        s1[k] += d;
+        s2[k] = fmaf(d, d, s2[k]);
+      }
+      ++rows;
     }
-    chan_merge(acc, loc);
   }
-
+  Sums st = {(float)(rows * VEC), 0.f, 0.f};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) chan_merge(acc, shfl_down_stat(acc, off));
-
-  __shared__ Stat warp_stats[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_stats[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Stat tot = warp_stats[0];
-    for (int w = 1; w < kThreads / 32; ++w) chan_merge(tot, warp_stats[w]);
-    float* out = part + (((long long)n * G + g) * S + s) * 3;
-    out[0] = tot.n;
-    out[1] = tot.mean;
-    out[2] = tot.m2;
+  for (int k = 0; k < VEC; ++k) {
+    st.s1 += s1[k];
+    st.s2 += s2[k];
   }
+  s_thr[threadIdx.x * blockDim.y + threadIdx.y] = st;
+  // The group's first vector in this block records the pivot.
+  if (owner && threadIdx.y == 0 && (v == v0 || (v * VEC) % cgs < VEC)) s_piv[g_own - g_lo] = p;
+  __syncthreads();
+
+  // Sum per group, one full warp per group: group g's vectors in this block
+  // are [a, b) (cg % VEC == 0 where VEC > 1), their sums s_thr[a*bdy ..
+  // b*bdy). Without CLUSTER lane 0 writes the partial; with it, lane 0
+  // pushes the sums into the leader's s_push[rank][g - g_lo] (a store into
+  // distributed shared memory: no latency waits on it).
+  const int ng = g_hi - g_lo + 1;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x * blockDim.y, full_warps = nthreads >> 5;
+  const int cs = CLUSTER ? (int)cg::this_cluster().num_blocks() : 1;
+  const int rank = CLUSTER ? (int)cg::this_cluster().block_rank() : 0;
+  const int s = blockIdx.y * clusters + blockIdx.x / cs;
+  float* pn = part + (long long)n * G * S * 3;
+  Sums* push = nullptr;
+  if (CLUSTER) {
+    push = cg::this_cluster().map_shared_rank(s_push, 0) + rank * ng;
+    cluster_wait();  // every CTA of the cluster has started: the leader's memory is there
+  }
+  for (int jg = warp; warp < full_warps && jg < ng; jg += full_warps) {
+    const int g = g_lo + jg;
+    const int a = max(v0, g * cgs / VEC) - v0;
+    const int b = min(v1, (g + 1) * cgs / VEC) - v0;
+    Sums acc = {0.f, 0.f, 0.f};
+    for (int i = a * blockDim.y + lane; i < b * blockDim.y; i += 32) acc += s_thr[i];
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (CLUSTER) push[jg] = acc;
+      else write_partial(pn + ((long long)g * S + s) * 3, acc, s_piv[jg]);
+    }
+  }
+  if (CLUSTER) {
+    cluster_arrive();  // release: the pushes are visible to the leader after its wait
+    cluster_wait();
+    if (rank != 0) return;
+    // The leader sums the pushes, one warp per group, one lane per CTA.
+    for (int jg = warp; warp < full_warps && jg < ng; jg += full_warps) {
+      Sums acc = {0.f, 0.f, 0.f};
+      if (lane < cs) acc = s_push[lane * ng + jg];
+      acc = warp_sum(acc);
+      if (lane == 0) write_partial(pn + ((long long)(g_lo + jg) * S + s) * 3, acc, s_piv[jg]);
+    }
+  }
+  // Count 0 for the groups outside this channel block (C split over grid y).
+  if (gridDim.y > 1)
+    for (int g = tid; g < G; g += nthreads)
+      if (g < g_lo || g > g_hi) write_partial(pn + ((long long)g * S + s) * 3, Sums{0.f, 0.f, 0.f}, 0.f);
 }
 
 // Pass 2. block (bdx, bdy), grid (row blocks, channel blocks, N). Thread
@@ -294,11 +432,30 @@ gn_norm_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restri
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T, int VEC>
-void launch_stats(const void* x, void* part, int N, int HW, int C, int G, int S,
-                  int rows_per_split, cudaStream_t stream) {
-  dim3 grid(S, G, N);
-  gn_stats_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(part), HW, C, G, S, rows_per_split);
+int launch_stats(const void* x, void* part, int HW, int C, int G, int S, int clusters,
+                 dim3 block, dim3 grid, int cs, int push_bytes, cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  float* pp = static_cast<float*>(part);
+  if (cs == 1) {  // no cluster: each block writes its own partials
+    gn_stats_kernel<T, VEC, false><<<grid, block, 0, stream>>>(xp, pp, HW, C, G, S, clusters);
+    return (int)cudaSuccess;
+  }
+  static const cudaError_t smem_attr = cudaFuncSetAttribute(
+      gn_stats_kernel<T, VEC, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxPushBytes);
+  if (smem_attr != cudaSuccess) return (int)smem_attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = push_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, gn_stats_kernel<T, VEC, true>, xp, pp, HW, C, G, S, clusters);
 }
 
 template <typename T, int VEC>
@@ -313,26 +470,44 @@ void launch_norm(const void* x, void* y, const void* part, const void* gamma,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
-extern "C" int ishape_gn_stats(const void* x, void* part, int dtype, int N, int HW,
-                               int C, int G, int S, int rows_per_split, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; vec: channels per thread (bf16 8 or 1,
+// fp32 4 or 1); block (bdx, bdy), grid (grid_x row blocks, grid_c channel
+// blocks, N), clusters of cs blocks along x (cs = 1: a plain launch),
+// clusters per channel block and S = grid_c * clusters partials per
+// (sample, group), all from ops/hopper_kernels.py gn_stats_geometry.
+// Returns the launch's error code, or cudaGetLastError() after it.
+extern "C" int ishape_gn_stats(const void* x, void* part, int dtype, int N, int HW, int C,
+                               int G, int S, int vec, int bdx, int bdy, int grid_x, int grid_c,
+                               int cs, int clusters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || C % G != 0) return (int)cudaErrorInvalidValue;
-  const int cg = C / G;
-  if (dtype == 1) {
-    if (cg % 8 == 0 && aligned16(x))
-      launch_stats<__nv_bfloat16, 8>(x, part, N, HW, C, G, S, rows_per_split, st);
-    else
-      launch_stats<__nv_bfloat16, 1>(x, part, N, HW, C, G, S, rows_per_split, st);
-  } else if (dtype == 0) {
-    if (cg % 4 == 0 && aligned16(x))
-      launch_stats<float, 4>(x, part, N, HW, C, G, S, rows_per_split, st);
-    else
-      launch_stats<float, 1>(x, part, N, HW, C, G, S, rows_per_split, st);
-  } else {
+  if (G < 1 || G > kMaxGroups || C % G != 0 || (C / G) % vec != 0) return (int)cudaErrorInvalidValue;
+  if (bdx < 1 || bdy < 1 || bdx * bdy > kStatsThreads || bdx * bdy < 32 || cs < 1 ||
+      cs > kMaxCluster || grid_x != cs * clusters || S != grid_c * clusters ||
+      (long long)grid_c * bdx * vec < C || (long long)(grid_c - 1) * bdx * vec >= C)
     return (int)cudaErrorInvalidValue;
+  // The leader's push area: cs CTAs x the most groups one block touches.
+  const int cgs = C / G, vpr = C / vec;
+  int ng = 0;
+  for (int cb = 0; cb < grid_c; ++cb) {
+    const int v0 = cb * bdx, v1 = v0 + bdx < vpr ? v0 + bdx : vpr;
+    const int span = (v1 * vec - 1) / cgs - v0 * vec / cgs + 1;
+    ng = span > ng ? span : ng;
   }
-  return (int)cudaGetLastError();
+  const int push_bytes = cs * ng * (int)sizeof(Sums);
+  if (push_bytes > kMaxPushBytes) return (int)cudaErrorInvalidValue;
+  const dim3 block(bdx, bdy), grid(grid_x, grid_c, N);
+  int rc;
+  if (dtype == 1 && vec == 8 && aligned16(x))
+    rc = launch_stats<__nv_bfloat16, 8>(x, part, HW, C, G, S, clusters, block, grid, cs, push_bytes, st);
+  else if (dtype == 1 && vec == 1)
+    rc = launch_stats<__nv_bfloat16, 1>(x, part, HW, C, G, S, clusters, block, grid, cs, push_bytes, st);
+  else if (dtype == 0 && vec == 4 && aligned16(x))
+    rc = launch_stats<float, 4>(x, part, HW, C, G, S, clusters, block, grid, cs, push_bytes, st);
+  else if (dtype == 0 && vec == 1)
+    rc = launch_stats<float, 1>(x, part, HW, C, G, S, clusters, block, grid, cs, push_bytes, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 // vec: channels per thread (bf16 8 or 1, fp32 4 or 1); block (bdx, bdy) and

@@ -1,14 +1,22 @@
 """Hand-written Hopper kernels for the UNet's two fused hot ops, their plain
 PyTorch versions, ``torch.autograd.Function`` wrappers and launch counters.
 
-Two kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
+Two ops, four kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 
 - ``groupnorm_silu`` (``csrc/groupnorm_silu.cu``, two launches: ``gn_stats``
   and ``gn_norm``): GroupNorm with fp32 statistics + optional FiLM
-  scale-shift + SiLU over NHWC activations, bf16 or fp32. Replaces
+  scale-shift + SiLU over NHWC activations, bf16 or fp32. ``gn_stats``
+  walks whole rows, one 16-byte channel vector per thread, and writes at
+  most 32 (count, mean, M2) partials per (sample, group), merging the
+  statistics of a large input's blocks inside thread block clusters;
+  ``gn_norm`` merges the partials and normalizes. Replaces
   ``ishapediting_tpu/ops/pallas_kernels.py::groupnorm_silu``.
-- ``attention_qkv`` (``csrc/attention.cu``, one launch): ADM legacy QKV
-  attention over ``[N, T, H*3*ch]`` bf16, ch in {32, 64, 128}. Replaces
+- ``attention_qkv``: ADM legacy QKV attention over ``[N, T, H*3*ch]`` at
+  every dtype and head dim the TPU kernel takes up to 128. bf16 at ch in
+  {32, 64, 128} takes the ``wgmma`` + TMA kernel (``csrc/attention.cu``,
+  counted as ``attention``); fp32 at any ch and bf16 at any other ch take
+  the generic fp32-FMA kernel (``csrc/attention_generic.cu``, counted as
+  ``attention_generic``). Replaces
   ``ishapediting_tpu/ops/pallas_kernels.py::attention_qkv``.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
@@ -17,17 +25,21 @@ first use with nvcc into ``build/kernels/`` (one ``nvcc -c`` per source,
 started together, then one link) and bind through ctypes. Backward passes
 recompute through the plain versions, as the JAX package's ``custom_vjp``
 does. ``LAUNCHES`` counts each kernel launch, so that a run can show it went
-through the kernels.
+through the kernels; ``record_launches`` also lists each launch's shape and
+the bytes and operations its bound counts. Launch shapes are computed here
+(``gn_stats_geometry``, ``gn_norm_geometry``, ``attention_geometry``,
+``attention_generic_geometry``) and passed to the C entry points.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -37,19 +49,46 @@ from ishapediting_tpu_torch.ops.nn import effective_groups, group_norm, silu
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("groupnorm_silu.cu", "attention.cu")
+SOURCES = ("groupnorm_silu.cu", "attention.cu", "attention_generic.cu")
 LIB_NAME = "libishape_kernels.so"
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES: Dict[str, int] = {"gn_stats": 0, "gn_norm": 0, "attention": 0}
+LAUNCHES: Dict[str, int] = {"gn_stats": 0, "gn_norm": 0, "attention": 0, "attention_generic": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_records: Optional[List[dict]] = None
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Yield a list that gets one dict per kernel launch inside the block:
+    ``kernel``, ``shape`` and ``dtype`` of its main input, the ``bytes`` it
+    must move (each input read once, each output written once) and its
+    ``tensor_flops`` (bf16 tensor cores) and ``fp32_flops`` (FMA units).
+    ``gn_norm`` is recorded where ``groupnorm_silu_cuda`` launches it."""
+    global _records
+    outer, _records = _records, []
+    try:
+        yield _records
+    finally:
+        _records = outer
+
+
+def _record(kernel: str, x: torch.Tensor, nbytes: int, tensor_flops: float = 0.0,
+            fp32_flops: float = 0.0) -> None:
+    if _records is not None:
+        _records.append(dict(kernel=kernel, shape=tuple(x.shape), dtype=str(x.dtype)[6:],
+                             bytes=nbytes, tensor_flops=tensor_flops, fp32_flops=fp32_flops))
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +152,7 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build_kernels())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.ishape_gn_stats.argtypes = [p, p, i, i, i, i, i, i, i, p]
+            lib.ishape_gn_stats.argtypes = [p, p] + [i] * 13 + [p]
             lib.ishape_gn_stats.restype = i
             lib.ishape_gn_norm.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, i, i, p]
             lib.ishape_gn_norm.restype = i
@@ -121,6 +160,10 @@ def _load() -> ctypes.CDLL:
             lib.ishape_attention.restype = i
             lib.ishape_attention_smem.argtypes = [i, i]
             lib.ishape_attention_smem.restype = i
+            lib.ishape_attention_generic.argtypes = [p, p, i, i, i, i, i, i, p]
+            lib.ishape_attention_generic.restype = i
+            lib.ishape_attention_generic_smem.argtypes = [i]
+            lib.ishape_attention_generic_smem.restype = i
             lib.ishape_error_string.argtypes = [i]
             lib.ishape_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -164,7 +207,12 @@ MAX_SMEM_BYTES = 232448  # 227 KB: the most shared memory one block may use
 _GN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GN_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte vector
 _GN_MAX_GROUPS = 1024
-_GN_TARGET_BLOCKS = 1024  # stats blocks in flight: ~8 per SM on 132 SMs
+_GN_STATS_MAX_THREADS = 1024  # the statistics kernel's launch bound and per-thread slots
+_GN_STATS_THREADS = 512  # threads per statistics block, at most
+_GN_STATS_BLOCKS_PER_SM = 2  # resident at once: one wave of long-lived blocks
+_GN_STATS_CLUSTER = 2  # CTAs per thread block cluster, where clusters pay
+_GN_STATS_CLUSTER_ROWS = 16  # rows per thread past which a sample's blocks form clusters
+_GN_MAX_SPLITS = 32  # partials per (sample, group), at most
 _GN_NORM_THREADS = 512  # threads per normalize block, at most (the kernel's launch bound)
 _GN_NORM_BLOCKS_PER_SM = 2  # resident at once: one wave, each thread with 4 rows in flight
 _GN_NORM_MAX_BDX = 512  # channel vectors per block; wider C splits over grid y
@@ -183,12 +231,40 @@ def groupnorm_silu_plain(x, scale, bias, num_groups=32, eps=1e-5, film=None):
     return silu(y)
 
 
-def gn_splits(n: int, hw: int, groups: int) -> tuple:
-    """(splits, rows per split) of the statistics pass: enough blocks to
-    fill the card at any batch, never an empty split."""
-    s = max(1, min(hw, -(-_GN_TARGET_BLOCKS // (n * groups))))
-    rows = -(-hw // s)
-    return -(-hw // rows), rows
+def gn_stats_geometry(n: int, hw: int, c: int, vec: int) -> dict:
+    """Launch shape of the ``gn_stats`` kernel for x [n, hw, c] with ``vec``
+    channels per thread: block (bdx, bdy) and the row walk as in
+    ``gn_norm_geometry``; grid (grid_x, grid_c, n). Each of the ``clusters``
+    groups of ``cluster`` row blocks writes one partial per group, so a group
+    has ``splits`` = grid_c * clusters <= 32 partials. A cluster launch costs
+    about 1 us of device time on an H100, so blocks form clusters (of
+    ``_GN_STATS_CLUSTER``) only where 32 blocks per sample would leave each
+    thread more than ``_GN_STATS_CLUSTER_ROWS`` rows; elsewhere
+    ``cluster`` is 1 (a plain launch). About ``_GN_STATS_BLOCKS_PER_SM``
+    blocks per SM at most, never more row blocks than rows to give them."""
+    if c % vec:
+        raise ValueError(f"{c} channels are not whole vectors of {vec}")
+    vpr = c // vec
+    bdx = min(vpr, _GN_STATS_THREADS)
+    bdy = max(1, _GN_STATS_THREADS // bdx)
+    grid_c = -(-vpr // bdx)
+    if grid_c > _GN_MAX_SPLITS:
+        raise ValueError(f"{c} channels in vectors of {vec}: over {_GN_MAX_SPLITS} channel blocks")
+    max_clusters = _GN_MAX_SPLITS // grid_c
+    want = -(-(_GN_STATS_BLOCKS_PER_SM * NUM_SMS) // (n * grid_c))
+    blocks = max(1, min(-(-hw // bdy), want))
+    cluster = 1
+    if hw > max_clusters * bdy * _GN_STATS_CLUSTER_ROWS:
+        cluster = min(_GN_STATS_CLUSTER, blocks)
+    clusters = min(max_clusters, -(-blocks // cluster))
+    grid_x = clusters * cluster
+    return dict(
+        vec=vec, block=(bdx, bdy), grid=(grid_x, grid_c, n), row_step=grid_x * bdy,
+        cluster=cluster, clusters=clusters, splits=grid_c * clusters,
+        # Static: sums and a pivot per thread slot; dynamic (clusters only):
+        # the leader's sums per CTA and group touched, at most one per vector.
+        smem_bytes=16 * _GN_STATS_MAX_THREADS + (12 * cluster * bdx if cluster > 1 else 0),
+    )
 
 
 def gn_norm_geometry(n: int, hw: int, c: int, vec: int) -> dict:
@@ -222,19 +298,37 @@ def gn_vec(x: torch.Tensor, *outs: torch.Tensor) -> int:
     return vec
 
 
+def gn_stats_vec(x: torch.Tensor, groups: int) -> int:
+    """Channels per thread of ``gn_stats``: a 16-byte vector where the group
+    width and the pointer allow it (a vector's channels in one group), else 1."""
+    vec = _GN_VEC[x.dtype]
+    if (x.shape[-1] // groups) % vec or x.data_ptr() % 16:
+        return 1
+    return vec
+
+
 def gn_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
     """Plain version of the ``gn_stats`` kernel: fp32 (count, mean, M2) of
-    each (sample, group, row split) of NHWC ``x``, as [N, G, S, 3]."""
+    each (sample, group, split) of NHWC ``x``, as [N, G, S, 3], split as the
+    kernel splits (``gn_stats_geometry``): partial cb*clusters + s holds the
+    rows of cluster s and the channels of channel block cb (count 0 for a
+    group outside that channel block)."""
     n, h, w, c = x.shape
-    s, rows = gn_splits(n, h * w, groups)
-    xg = x.float().reshape(n, h * w, groups, c // groups)
+    hw, cg = h * w, c // groups
+    geo = gn_stats_geometry(n, hw, c, gn_stats_vec(x, groups))
+    bdx, bdy = geo["block"]
+    dev = x.device
+    row_cluster = (torch.arange(hw, device=dev) % geo["row_step"]) // bdy // geo["cluster"]
+    chan_block = (torch.arange(c, device=dev) // geo["vec"] // bdx).reshape(groups, cg)
+    xg = x.float().reshape(n, hw, groups, cg)
     parts = []
-    for i in range(s):
-        blk = xg[:, i * rows:(i + 1) * rows]
-        mean = blk.mean(dim=(1, 3))
-        m2 = (blk - mean[:, None, :, None]).square().sum(dim=(1, 3))
-        count = torch.full_like(mean, blk.shape[1] * blk.shape[3])
-        parts.append(torch.stack([count, mean, m2], dim=-1))
+    for cb in range(geo["grid"][1]):
+        for s in range(geo["clusters"]):
+            m = ((row_cluster == s)[:, None, None] & (chan_block == cb)[None]).float()
+            count = m.sum(dim=(0, 2)).expand(n, groups)
+            mean = (xg * m).sum(dim=(1, 3)) / count.clamp(min=1)
+            m2 = ((xg - mean[:, None, :, None]) * m).square().sum(dim=(1, 3))
+            parts.append(torch.stack([count, mean, m2], dim=-1))
     return torch.stack(parts, dim=2)
 
 
@@ -267,14 +361,15 @@ def gn_stats_cuda(x: torch.Tensor, groups: int) -> torch.Tensor:
     if not 1 <= groups <= _GN_MAX_GROUPS:
         raise ValueError(f"{groups} groups: the kernel takes 1..{_GN_MAX_GROUPS}")
     n, h, w, c = x.shape
-    s, rows = gn_splits(n, h * w, groups)
-    part = torch.empty((n, groups, s, 3), dtype=torch.float32, device=x.device)
+    geo = gn_stats_geometry(n, h * w, c, gn_stats_vec(x, groups))
+    part = torch.empty((n, groups, geo["splits"], 3), dtype=torch.float32, device=x.device)
     lib = _load()
     _check(lib, lib.ishape_gn_stats(
-        x.data_ptr(), part.data_ptr(), _GN_DTYPES[x.dtype], n, h * w, c, groups, s, rows,
-        _stream(x),
+        x.data_ptr(), part.data_ptr(), _GN_DTYPES[x.dtype], n, h * w, c, groups, geo["splits"],
+        geo["vec"], *geo["block"], *geo["grid"][:2], geo["cluster"], geo["clusters"], _stream(x),
     ), "gn_stats")
     LAUNCHES["gn_stats"] += 1
+    _record("gn_stats", x, _nbytes(x, part), fp32_flops=3 * x.numel())
     return part
 
 
@@ -317,7 +412,11 @@ def groupnorm_silu_cuda(x, scale, bias, num_groups=32, eps=1e-5, film=None):
     fp32): statistics, then merge and normalize."""
     _require_cuda(x, "x", tuple(_GN_DTYPES))
     part = gn_stats_cuda(x, effective_groups(x.shape[-1], num_groups))
-    return gn_norm_cuda(x, part, scale, bias, eps, film)
+    y = gn_norm_cuda(x, part, scale, bias, eps, film)
+    n, c = x.shape[0], x.shape[-1]
+    _record("gn_norm", x, _nbytes(x, y, part) + 4 * (2 * c + (0 if film is None else 2 * n * c)),
+            fp32_flops=12 * x.numel())
+    return y
 
 
 class GroupNormSiLU(torch.autograd.Function):
@@ -368,9 +467,15 @@ def groupnorm_silu(x, scale, bias, num_groups=32, eps=1e-5, film=None):
 # QKV attention
 # ---------------------------------------------------------------------------
 
-_ATTN_HEAD_DIMS = (32, 64, 128)
+_ATTN_HEAD_DIMS = (32, 64, 128)  # the wgmma kernel's, in bf16
 _ATTN_ROWS = 64  # query rows per CTA (one consumer warpgroup)
 _ATTN_STAGES = 3  # K/V ring depth
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ATTN_MAX_CH = 128
+_ATTN_GENERIC_THREADS = 256
+_ATTN_GENERIC_ROWS = 64  # query rows per CTA: four per thread, 16 lanes per row group
+_ATTN_GENERIC_KEYS = 64  # keys per K/V tile
+_ATTN_GENERIC_STRIDE = 68  # row stride of the transposed Q, K and P tiles, in floats
 
 
 def attention_geometry(n: int, t: int, heads: int, ch: int) -> dict:
@@ -391,24 +496,70 @@ def attention_geometry(n: int, t: int, heads: int, ch: int) -> dict:
     )
 
 
+def attention_generic_geometry(n: int, t: int, heads: int, ch: int) -> dict:
+    """Launch shape of the generic attention kernel
+    (``csrc/attention_generic.cu``): 256 threads per (64 query rows,
+    batch*head), grid (query tiles, n*heads); the head dim padded to ``chp``,
+    a power of two from 8 to 128 (V and O to at least 16 channels). Shared
+    memory in fp32, as ``Layout<CHP>::BYTES``: Q^T and K^T [chp][68], V
+    [64][max(chp, 16) + 4], P^T [64][68]."""
+    if not 1 <= ch <= _ATTN_MAX_CH:
+        raise ValueError(f"head dim {ch} not supported (kernel takes 1..{_ATTN_MAX_CH})")
+    chp = max(8, 1 << (ch - 1).bit_length())
+    rows, keys, stride = _ATTN_GENERIC_ROWS, _ATTN_GENERIC_KEYS, _ATTN_GENERIC_STRIDE
+    return dict(
+        threads=_ATTN_GENERIC_THREADS, grid=(-(-t // rows), n * heads), chp=chp,
+        key_tiles=-(-t // keys),
+        smem_bytes=4 * (2 * chp * stride + keys * (max(chp, 16) + 4) + keys * stride),
+    )
+
+
+def attention_route(dtype: torch.dtype, ch: int) -> str:
+    """Which kernel (``LAUNCHES`` key) takes qkv of ``dtype`` at head dim
+    ``ch``: the wgmma kernel for bf16 at ch in {32, 64, 128}, the generic one
+    for fp32 or bf16 at any other ch up to 128; anything else raises."""
+    if dtype not in _ATTN_DTYPES:
+        raise TypeError(f"qkv: dtype {dtype} not supported (want {tuple(_ATTN_DTYPES)})")
+    if not 1 <= ch <= _ATTN_MAX_CH:
+        raise ValueError(f"head dim {ch} not supported (kernels take 1..{_ATTN_MAX_CH})")
+    if dtype == torch.bfloat16 and ch in _ATTN_HEAD_DIMS:
+        return "attention"
+    return "attention_generic"
+
+
 def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Launch the attention kernel on qkv [N, T, H*3*ch] (bf16, contiguous)."""
-    _require_cuda(qkv, "qkv", (torch.bfloat16,))
+    """Launch an attention kernel on qkv [N, T, H*3*ch] (contiguous, fp32 or
+    bf16), the one ``attention_route`` picks."""
+    _require_cuda(qkv, "qkv", tuple(_ATTN_DTYPES))
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv {tuple(qkv.shape)} is not [N, T, {num_heads}*3*ch]")
     n, t, width = qkv.shape
     ch = width // (3 * num_heads)
-    geo = attention_geometry(n, t, num_heads, ch)
-    # The tensor map wants a 16-byte aligned base and row and sample strides
-    # that are multiples of 16 bytes.
-    if qkv.data_ptr() % 16 or (width * qkv.element_size()) % 16:
-        raise ValueError("qkv must be 16-byte aligned, with rows a multiple of 16 bytes")
+    route = attention_route(qkv.dtype, ch)
     out = torch.empty((n, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
     lib = _load()
-    _check(lib, lib.ishape_attention(
-        qkv.data_ptr(), out.data_ptr(), n, t, num_heads, ch, geo["keys_per_tile"], _stream(qkv)
-    ), "attention")
-    LAUNCHES["attention"] += 1
+    products = 4.0 * n * num_heads * t * t * ch  # flops of Q K^T and P V
+    if route == "attention":
+        geo = attention_geometry(n, t, num_heads, ch)
+        # The tensor map wants a 16-byte aligned base and row and sample
+        # strides that are multiples of 16 bytes.
+        if qkv.data_ptr() % 16 or (width * qkv.element_size()) % 16:
+            raise ValueError("qkv must be 16-byte aligned, with rows a multiple of 16 bytes")
+        _check(lib, lib.ishape_attention(
+            qkv.data_ptr(), out.data_ptr(), n, t, num_heads, ch, geo["keys_per_tile"], _stream(qkv)
+        ), "attention")
+        # The products on the tensor cores; the softmax, about 4 fp32
+        # operations per logit, on the FMA units.
+        _record(route, qkv, _nbytes(qkv, out), tensor_flops=products,
+                fp32_flops=4.0 * n * num_heads * t * t)
+    else:
+        geo = attention_generic_geometry(n, t, num_heads, ch)
+        _check(lib, lib.ishape_attention_generic(
+            qkv.data_ptr(), out.data_ptr(), _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch,
+            geo["chp"], _stream(qkv)
+        ), "attention_generic")
+        _record(route, qkv, _nbytes(qkv, out), fp32_flops=products)
+    LAUNCHES[route] += 1
     return out
 
 

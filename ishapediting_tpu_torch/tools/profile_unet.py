@@ -3,9 +3,16 @@
     python -m ishapediting_tpu_torch.tools.profile_unet --batch 1 2
 
 For each batch size: the steady-state forward time (CUDA events), the
-device time of the kernels per forward and the device's idle share, and a
-``torch.profiler`` table of device time by kernel name over a few forwards,
-on random weights from a seed. Prints the card's name and power limit first.
+device time of the kernels per forward and the device's idle share, each
+hand-written kernel's device ms, launches and summed bound per forward, and
+a ``torch.profiler`` table of device time by kernel name over a few
+forwards, on random weights from a seed. Prints the card's name and power
+limit first.
+
+The summed bound of a kernel is, over the launches of one forward as
+``hopper_kernels.record_launches`` lists them (shapes recorded during the
+forward), the least time of each launch: its bytes at the HBM rate, or its
+operations at the peak rate of their type where those take longer.
 """
 
 from __future__ import annotations
@@ -17,6 +24,43 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ITERS = 5  # forwards per timing and per profile
+KERNELS = {  # LAUNCHES key -> the CUDA kernel's name in a profiler trace (csrc/*.cu)
+    "gn_stats": "gn_stats_kernel",
+    "gn_norm": "gn_norm_kernel",
+    "attention": "attention_kernel",
+    "attention_generic": "attention_generic_kernel",
+}
+
+
+def kernel_accounting(fwd, iters: int = ITERS) -> dict:
+    """Per forward ``fwd()`` on the card: for each hand-written kernel, its
+    device ms (profiler), launches and summed bound ms, plus the forward's
+    kernels-busy ms. Returns {"busy_ms": ..., "kernels": {name: {...}}} and
+    the profiler's kernel rows under "events"."""
+    from ishapediting_tpu_torch.ops import hopper_kernels as hk
+    from ishapediting_tpu_torch.utils.device import bound_ms, kernel_rows
+
+    fwd()
+    torch.cuda.synchronize()
+    with hk.record_launches() as recs:
+        fwd()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fwd()
+        torch.cuda.synchronize()
+    events = kernel_rows(prof)
+    out = {}
+    for key, name in KERNELS.items():
+        rows = [e for e in events if name in e.key]
+        mine = [r for r in recs if r["kernel"] == key]
+        out[key] = dict(
+            ms=sum(e.self_device_time_total for e in rows) / 1e3 / iters,
+            launches=len(mine),
+            bound_ms=sum(bound_ms(r["bytes"], r["tensor_flops"], r["fp32_flops"])[0] for r in mine),
+        )
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / iters
+    return dict(busy_ms=busy, kernels=out, events=events)
 
 
 def main(argv=None) -> None:
@@ -29,9 +73,7 @@ def main(argv=None) -> None:
 
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
-    from ishapediting_tpu_torch.utils.device import (
-        cuda_ms, kernel_rows, resolve_device, set_cuda_flags,
-    )
+    from ishapediting_tpu_torch.utils.device import cuda_ms, resolve_device, set_cuda_flags
 
     dev = resolve_device("cuda")
     set_cuda_flags(cudnn_benchmark=not args.no_cudnn_benchmark)
@@ -53,19 +95,14 @@ def main(argv=None) -> None:
                 unet(x, t)
 
         ms = cuda_ms(fwd, ITERS)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(ITERS):
-                fwd()
-            torch.cuda.synchronize()
-        events = kernel_rows(prof)
-        busy = sum(e.self_device_time_total for e in events) / 1e3 / ITERS
+        acc = kernel_accounting(fwd)
+        busy = acc["busy_ms"]
         print(f"batch {batch}: forward {ms:.3f} ms (CUDA events); kernels busy {busy:.3f} ms "
               f"per forward (profiler), device idle {1 - busy / ms:.1%}")
-        for name in ("gn_stats_kernel", "gn_norm_kernel", "attention_kernel"):  # csrc/*.cu
-            rows = [e for e in events if name in e.key]
-            print(f"  {name}: {sum(e.self_device_time_total for e in rows) / 1e3 / ITERS:.3f} ms, "
-                  f"{sum(e.count for e in rows) // ITERS} launches per forward")
-        events.sort(key=lambda e: -e.self_device_time_total)
+        for key, k in acc["kernels"].items():
+            print(f"  {key}: {k['ms']:.4f} ms, {k['launches']} launches per forward, "
+                  f"summed bound {k['bound_ms']:.4f} ms")
+        events = sorted(acc["events"], key=lambda e: -e.self_device_time_total)
         for e in events[: args.rows]:
             print(f"  {e.self_device_time_total / 1e3 / ITERS:9.3f} ms "
                   f"{e.count // ITERS:5d}x  {e.key[:110]}")

@@ -43,6 +43,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         hk.groupnorm_silu_cuda(torch.randn(1, 4, 4, 32), torch.ones(32), torch.zeros(32))
     with pytest.raises(ValueError, match="CUDA"):
         hk.attention_qkv_cuda(torch.randn(1, 16, 3 * 64, dtype=torch.bfloat16), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.attention_qkv_cuda(torch.randn(1, 16, 3 * 8), 1)
 
 
 def test_unsupported_device_raises():
@@ -309,3 +311,239 @@ def test_groupnorm_silu_large_negative_on_card(cuda_device, dtype):
     want = hk.gn_norm_plain(xt, part, *args, film=ft)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# gn_stats launch geometry (pure Python: runs here)
+# ---------------------------------------------------------------------------
+
+BF16, FP32 = torch.bfloat16, torch.float32
+# Every (H, W, C, dtype) at which one chairs UNet forward calls
+# groupnorm_silu (21 pairs; test_chairs_gn_calls_are_the_listed_pairs
+# records them from a forward on the meta device).
+CHAIRS_GN = [
+    (8, 8, 1024, BF16), (64, 64, 256, BF16), (128, 128, 256, BF16), (32, 32, 512, BF16),
+    (16, 16, 768, BF16), (64, 64, 512, BF16), (128, 128, 512, BF16), (32, 32, 256, BF16),
+    (16, 16, 512, BF16), (8, 8, 768, BF16), (8, 8, 2048, BF16), (32, 32, 768, BF16),
+    (8, 8, 1792, BF16), (16, 16, 1024, BF16), (16, 16, 1792, BF16), (16, 16, 1536, BF16),
+    (16, 16, 1280, BF16), (32, 32, 1280, BF16), (32, 32, 1024, BF16), (64, 64, 768, BF16),
+    (128, 128, 256, FP32),
+]
+
+
+def test_chairs_gn_calls_are_the_listed_pairs(monkeypatch):
+    """One chairs forward on the meta device, with the kernels' wrappers
+    replaced by recorders: its GroupNorm-SiLU inputs are CHAIRS_GN (71
+    calls per forward) and its attention inputs bf16 at head dim 64."""
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+
+    gn, attn = [], []
+
+    def gn_rec(x, *args, **kw):
+        gn.append((*x.shape[1:], x.dtype))
+        return torch.empty_like(x)
+
+    def attn_rec(qkv, heads):
+        attn.append((qkv.dtype, qkv.shape[-1] // (3 * heads)))
+        return qkv.new_empty(*qkv.shape[:2], qkv.shape[-1] // 3)
+
+    monkeypatch.setattr(hk, "groupnorm_silu", gn_rec)
+    monkeypatch.setattr(hk, "attention_qkv", attn_rec)
+    cfg = preset("chairs")
+    with torch.device("meta"):
+        unet = UNetModel(cfg.unet)
+        with torch.no_grad():
+            unet(torch.empty((2,) + cfg.latent_shape), torch.zeros(2, dtype=torch.long))
+    assert sorted(set(gn), key=str) == sorted(CHAIRS_GN, key=str)
+    assert (len(gn), len(attn)) == kernel_calls_per_forward(cfg.unet) == (71, 16)
+    assert set(attn) == {(BF16, 64)} and hk.attention_route(BF16, 64) == "attention"
+
+
+def _check_gn_stats_geometry(n, hw, c, vec):
+    geo = hk.gn_stats_geometry(n, hw, c, vec)
+    bdx, bdy = geo["block"]
+    grid_x, grid_c, grid_n = geo["grid"]
+    cs, clusters = geo["cluster"], geo["clusters"]
+    assert grid_n == n and geo["vec"] == vec
+    # At most 32 partials per (sample, group); the clusters tile grid x.
+    assert geo["splits"] == grid_c * clusters <= 32
+    assert 1 <= cs <= 8 and grid_x == cs * clusters and grid_x % cs == 0
+    # A legal block within the kernel's launch bound and shared memory.
+    assert 32 <= bdx * bdy <= min(hk.MAX_BLOCK_THREADS, hk._GN_STATS_THREADS)
+    assert geo["smem_bytes"] <= hk.MAX_SMEM_BYTES
+    # Channel blocks cover the row's vectors once, none of them empty.
+    vpr = c // vec
+    vectors = [cb * bdx + tx for cb in range(grid_c) for tx in range(bdx) if cb * bdx + tx < vpr]
+    assert sorted(vectors) == list(range(vpr)) and (grid_c - 1) * bdx < vpr
+    # The grid-stride walk visits every row of a sample exactly once, and
+    # every cluster gets rows (no empty partial within a channel block).
+    assert geo["row_step"] == grid_x * bdy
+    starts = [bx * bdy + ty for bx in range(grid_x) for ty in range(bdy)]
+    assert _covered_once(starts, geo["row_step"], hw)
+    rows_of_cluster = np.bincount(
+        (np.arange(hw) % geo["row_step"]) // bdy // cs, minlength=clusters)
+    assert len(rows_of_cluster) == clusters and (rows_of_cluster > 0).all()
+    return geo
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("h,w,c,dtype", CHAIRS_GN)
+def test_gn_stats_geometry_chairs(h, w, c, dtype, n):
+    """Every chairs (shape, dtype) at batch 1, 2 and 8: one 16-byte vector
+    per thread (one channel block), rows covered once, S <= 32, clusters of
+    at most 8 that tile the grid, a few long-lived blocks per SM."""
+    geo = _check_gn_stats_geometry(n, h * w, c, hk._GN_VEC[dtype])
+    assert geo["grid"][1] == 1 and geo["block"][0] * geo["vec"] == c
+    assert geo["grid"][0] * n <= 4 * hk.NUM_SMS
+
+
+@pytest.mark.parametrize(
+    "n,hw,c,vec", [(1, 60, 24, 1), (1, 256, 16, 1), (2, 64, 32, 1), (1, 10, 3000, 1),
+                   (1, 6, 3000, 4), (1, 64, 4096, 4), (1, 1, 64, 8), (3, 5, 7, 1),
+                   (1, 16384, 64, 8), (16, 4096, 512, 8)],
+)
+def test_gn_stats_geometry_generic(n, hw, c, vec):
+    """Narrow, unvectorised, very wide (several channel blocks) and tiny
+    inputs keep the same invariants."""
+    _check_gn_stats_geometry(n, hw, c, vec)
+
+
+def test_gn_stats_geometry_refuses_partial_vectors():
+    with pytest.raises(ValueError, match="vectors"):
+        hk.gn_stats_geometry(1, 4, 20, 8)
+
+
+@pytest.mark.parametrize("shape,groups", [((1, 2, 3, 3000), 30), ((2, 5, 7, 24), 24),
+                                          ((2, 8, 8, 64), 32), ((1, 16, 16, 16), 16)])
+def test_gn_stats_plain_partials_merge_to_group_stats(shape, groups):
+    """The split partials (several channel blocks at C = 3000, whose groups
+    straddle a block edge, with count-0 partials) merge to each group's
+    count, mean and biased variance."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.normal(size=shape) * 3 + 2).astype(np.float32))
+    part = hk.gn_stats_plain(x, groups)
+    count, mean, m2 = part.unbind(-1)
+    total = count.sum(-1)
+    mu = (count * mean).sum(-1) / total
+    var = (m2.sum(-1) + (count * (mean - mu[..., None]).square()).sum(-1)) / total
+    xg = x.reshape(shape[0], -1, groups, shape[-1] // groups).double()
+    assert torch.all(total == xg.shape[1] * xg.shape[3])
+    torch.testing.assert_close(mu.double(), xg.mean(dim=(1, 3)), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(var.double(), xg.var(dim=(1, 3), correction=0), atol=1e-4, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Generic attention: routing and launch geometry (pure Python: runs here)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "dtype,ch,route",
+    [(BF16, 32, "attention"), (BF16, 64, "attention"), (BF16, 128, "attention"),
+     (BF16, 8, "attention_generic"), (BF16, 16, "attention_generic"),
+     (BF16, 48, "attention_generic"), (FP32, 8, "attention_generic"),
+     (FP32, 64, "attention_generic"), (FP32, 1, "attention_generic"),
+     (FP32, 128, "attention_generic")],
+)
+def test_attention_route(dtype, ch, route):
+    assert hk.attention_route(dtype, ch) == route
+
+
+@pytest.mark.parametrize("dtype,ch,err", [(FP32, 129, ValueError), (BF16, 256, ValueError),
+                                          (FP32, 0, ValueError), (torch.float16, 64, TypeError)])
+def test_attention_route_refuses(dtype, ch, err):
+    with pytest.raises(err):
+        hk.attention_route(dtype, ch)
+
+
+@pytest.mark.parametrize("n,t,heads,ch", [(2, 1024, 8, 64), (2, 64, 4, 8), (1, 1, 1, 1),
+                                          (2, 65, 3, 40), (1, 77, 2, 128), (2, 256, 12, 9)])
+def test_attention_generic_geometry(n, t, heads, ch):
+    """The padded head dim is the least power of two >= max(ch, 8); each
+    query row is in exactly one 64-row tile; shared memory within 227 KB."""
+    geo = hk.attention_generic_geometry(n, t, heads, ch)
+    chp = geo["chp"]
+    assert chp in (8, 16, 32, 64, 128) and ch <= chp and (chp == 8 or 2 * ch > chp)
+    qtiles, bh = geo["grid"]
+    assert bh == n * heads and (qtiles - 1) * 64 < t <= qtiles * 64
+    assert geo["threads"] == 256 and geo["smem_bytes"] <= hk.MAX_SMEM_BYTES
+    assert (geo["key_tiles"] - 1) * 64 < t <= geo["key_tiles"] * 64
+
+
+# ---------------------------------------------------------------------------
+# Slice 3 kernels on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 65, 1024])
+@pytest.mark.parametrize("dtype,ch", [(FP32, 8), (FP32, 16), (FP32, 32), (FP32, 64), (FP32, 128),
+                                      (BF16, 8), (BF16, 16)])
+def test_attention_generic_on_card(cuda_device, dtype, ch, t):
+    """The generic kernel against dense_qkv_attention on the same inputs:
+    fp32 |kernel - plain| <= 1e-4 (summation order), bf16 2e-2 (the
+    wgmma kernel's tolerance). Only ``attention_generic`` counts."""
+    heads = 2
+    rng = np.random.default_rng(t * 1000 + ch)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, heads * 3 * ch)).astype(np.float32))
+    qkv = qkv.to(cuda_device, dtype)
+    before = dict(hk.LAUNCHES)
+    got = hk.attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["attention_generic"] == before["attention_generic"] + 1
+    assert hk.LAUNCHES["attention"] == before["attention"]
+    want = dense_qkv_attention(qkv, heads)
+    atol = 1e-4 if dtype == FP32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,heads,ch", [(77, 2, 40), (100, 3, 1), (130, 2, 100), (64, 4, 8)])
+def test_attention_generic_any_head_dim_on_card(cuda_device, t, heads, ch):
+    """Head dims that are not powers of two (padded to chp), fp32, inputs
+    x4 so that the running max moves across key tiles: 1e-4 + 1e-5|plain|."""
+    rng = np.random.default_rng(t + ch)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, heads * 3 * ch)).astype(np.float32) * 4)
+    qkv = qkv.to(cuda_device)
+    got = hk.attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, dense_qkv_attention(qkv, heads), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chp", [8, 16, 32, 64, 128])
+def test_attention_generic_geometry_matches_the_library(cuda_device, chp):
+    geo = hk.attention_generic_geometry(1, 64, 1, chp)
+    assert geo["chp"] == chp
+    assert hk._load().ishape_attention_generic_smem(chp) == geo["smem_bytes"]
+
+
+def _var_form(part):
+    """(count, mean, M2) as (count, mean, M2/count): O(1) values."""
+    return torch.cat([part[..., :2], part[..., 2:] / part[..., :1]], dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("h,w,c,dtype", CHAIRS_GN)
+def test_gn_stats_chairs_on_card(cuda_device, h, w, c, dtype, n):
+    """Every chairs (shape, dtype): the kernel's partials one by one against
+    gn_stats_plain (same split), and the merged group statistics against
+    torch.var_mean, each to 1e-4 + 1e-4|plain| on (count, mean, M2/count)."""
+    rng = np.random.default_rng(h * c + n)
+    x = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2 + 0.5).astype(np.float32))
+    x = x.to(cuda_device, dtype)
+    g = hk.effective_groups(c, 32)
+    part = hk.gn_stats_cuda(x, g)
+    torch.cuda.synchronize()
+    want = hk.gn_stats_plain(x, g)
+    assert part.shape == want.shape and part.shape[2] <= 32
+    torch.testing.assert_close(_var_form(part), _var_form(want), atol=1e-4, rtol=1e-4)
+    count, mean, m2 = part.double().unbind(-1)
+    total = count.sum(-1)
+    mu = (count * mean).sum(-1) / total
+    var = (m2.sum(-1) + (count * (mean - mu[..., None]).square()).sum(-1)) / total
+    v_ref, mu_ref = torch.var_mean(x.double().reshape(n, h * w, g, c // g), dim=(1, 3), correction=0)
+    torch.testing.assert_close(mu, mu_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(var, v_ref, atol=1e-4, rtol=1e-4)

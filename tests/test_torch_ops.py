@@ -162,12 +162,6 @@ def test_group_norm_plain_matches_jax():
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
 
 
-def test_gn_splits_cover_rows():
-    for n, hw, g in ((1, 16384, 32), (2, 64, 32), (8, 1, 32), (1, 60, 24)):
-        s, rows = hk.gn_splits(n, hw, g)
-        assert s >= 1 and (s - 1) * rows < hw <= s * rows
-
-
 @pytest.mark.parametrize("shape", [(2, 8, 8, 64), (1, 6, 10, 24), (1, 64, 64, 32)])
 @pytest.mark.parametrize("film", [False, True])
 def test_per_kernel_plain_versions_compose_to_jax(shape, film):
@@ -179,7 +173,8 @@ def test_per_kernel_plain_versions_compose_to_jax(shape, film):
     g = tnn.effective_groups(c, 32)
     xt = torch.from_numpy(x)
     part = hk.gn_stats_plain(xt, g)
-    assert part.shape == (n, g, hk.gn_splits(n, shape[1] * shape[2], g)[0], 3)
+    geo = hk.gn_stats_geometry(n, shape[1] * shape[2], c, hk.gn_stats_vec(xt, g))
+    assert part.shape == (n, g, geo["splits"], 3)
     assert torch.all(part[..., 0].sum(-1) == shape[1] * shape[2] * c // g)
     tfilm = None if f is None else tuple(torch.from_numpy(a) for a in f)
     got = hk.gn_norm_plain(xt, part, torch.from_numpy(scale), torch.from_numpy(bias), film=tfilm)
@@ -256,4 +251,16 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     x = torch.randn(1, 4, 4, 32)
     hk.groupnorm_silu(x, torch.ones(32), torch.zeros(32))
     hk.attention_qkv(torch.randn(1, 16, 3 * 64), 1)
-    assert hk.LAUNCHES == {"gn_stats": 0, "gn_norm": 0, "attention": 0}
+    assert hk.LAUNCHES == {"gn_stats": 0, "gn_norm": 0, "attention": 0, "attention_generic": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_head_dim_8_takes_plain_version(dtype):
+    """fp32 or bf16 at ch 8 (the tiny preset's heads), which the card routes
+    to the generic kernel: a CPU tensor takes the plain version, uncounted."""
+    hk.reset_launch_counts()
+    qkv = torch.from_numpy(np.random.default_rng(13).normal(size=(2, 64, 4 * 3 * 8))).to(dtype)
+    assert hk.attention_route(dtype, 8) == "attention_generic"
+    got = hk.attention_qkv(qkv, 4)
+    torch.testing.assert_close(got, dense_qkv_attention(qkv, 4), atol=0, rtol=0)
+    assert sum(hk.LAUNCHES.values()) == 0
