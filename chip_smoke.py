@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation path once on one NVIDIA card.
+"""Drive the PyTorch port's generation and editing paths once on one NVIDIA
+card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
 
@@ -11,24 +12,42 @@ Phases, each fatal on failure (exit code 1, no result line):
    shapes and types (the generic attention kernel in fp32 at the chairs
    shapes and at the tiny preset's head dim 8, and in bf16 at head dim 8),
    and time kernel, plain version, the closest PyTorch library call, and
-   the least time the card could take (``bound_ms``);
+   the least time the card could take (``bound_ms``); then the backward
+   pass: gradients through each kernel's autograd Function (kernel forward,
+   plain recompute backward) against autograd through the plain
+   composition, at every chairs input at batch 1 and at the fp32 UNets'
+   inputs;
 3. check the whole UNet on the card against the same module on the CPU
    (plain versions) on a small input: a bf16 torso at head dim 64 (the
    wgmma attention kernel), then the ``tiny`` preset (fp32 torso, head dim
    8: the generic attention kernel, ``gn_stats`` at one channel per group)
    to a relative L2 error of 1e-4; then the fp32 path end to end:
-   ``DragEngine(preset("tiny"), device="cuda").update_latent_params``;
+   ``DragEngine(preset("tiny"), device="cuda").update_latent_params``; then
+   the edit gate (``tests/assets/edit_gate.npz``, fp32 toy UNet) on the
+   card: inversion with the recorded noises, scale-0 and guided replay
+   drags, the guided motion loss at least half the recorded reduction below
+   the scale-0 one, and the per-step motion losses held to the same run on
+   the CPU;
 4. the main path at the published chairs width (421M parameters, bf16
    torso, random weights from a seed; only step counts are cut):
    ``cli.generate`` with DDIM and with DPM-Solver++(2M), 10 steps, 2 samples
    at batch 2, 256^3 meshes; then ``DragEngine.update_latent_params`` on a
-   20-step chain with its guidance-feature cache and its 256^3 mesh; then
-   each kernel's device ms, launches and summed bound per chairs forward at
-   batch 1 and 2 (``tools/profile_unet.py::kernel_accounting``);
+   20-step chain (w_time 10) with its guidance-feature cache and its 256^3
+   mesh (marched on the card); then the editing path on that engine: a
+   resample drag over the whole w_time walk, ``latent_inversion`` of the
+   generated latent, a replay drag, ``fit_real_shape`` of the first mesh
+   (3 guided steps, twice: the second call runs without cuDNN's timing of
+   new shapes); then ``cli.edit`` (200-step generation, a 10-step fast
+   drag, two 256^3 meshes); then device marching against host marching on
+   one 256^3 grid; then each kernel's device ms, launches and summed bound
+   per chairs forward at batch 1 and 2
+   (``tools/profile_unet.py::kernel_accounting``);
    in every run of phases 3 and 4 the launch counters are reset just before
    it and read just after it, and each must equal the UNet forwards of that
-   run times the kernel's calls per forward (chairs runs launch no generic
-   attention, the tiny run no wgmma attention);
+   run times the kernel's calls per forward (a drag or fit step is one
+   forward; its backward recomputes through the plain versions and launches
+   nothing; chairs runs launch no generic attention, the fp32 runs no wgmma
+   attention);
 5. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -49,6 +68,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -215,23 +235,25 @@ def kernel_checks(hk, dev):
                              fp32_flops=12 * x.numel())
         n_ms = device_ms(lambda: hk.gn_norm_cuda(x, part, scale, bias, film=f),
                          kernel="gn_norm_kernel")
-        say(f"    gn_stats {s_ms:.4f} ms (bound {sb_ms:.4f}, torch.var_mean {s_lib}), "
-            f"gn_norm {n_ms:.4f} ms (bound {nb_ms:.4f})")
+        sp_ms = device_ms(lambda: hk.gn_stats_plain(x, g), 5)
+        np_ms = device_ms(lambda: hk.gn_norm_plain(x, part, scale, bias, film=f), 5)
+        say(f"    gn_stats {s_ms:.4f} ms (plain {sp_ms:.4f}, bound {sb_ms:.4f}, torch.var_mean "
+            f"{s_lib}), gn_norm {n_ms:.4f} ms (plain {np_ms:.4f}, bound {nb_ms:.4f})")
         rows["gn_stats"].append(dict(shape=list(shape), dtype=dname, film=film, ms=s_ms,
-                                     bound_ms=sb_ms, library_ms=s_lib))
+                                     plain_ms=sp_ms, bound_ms=sb_ms, library_ms=s_lib,
+                                     max_abs_err=err_s))
         rows["gn_norm"].append(dict(shape=list(shape), dtype=dname, film=film, ms=n_ms,
-                                    bound_ms=nb_ms, library_ms=None, both_ms=both_ms,
-                                    both_library_ms=lib_ms))
+                                    plain_ms=np_ms, bound_ms=nb_ms, library_ms=None,
+                                    both_ms=both_ms, both_library_ms=lib_ms, max_abs_err=err_n))
         if "gn_stats" not in report:
             report["gn_stats"] = dict(
                 shape=list(shape), dtype=dname, max_abs_err=err_s,
-                tol="1e-4 + 1e-4|plain| on (count, mean, M2/count)", ms=s_ms,
-                plain_ms=device_ms(lambda: hk.gn_stats_plain(x, g), 5),
+                tol="1e-4 + 1e-4|plain| on (count, mean, M2/count)", ms=s_ms, plain_ms=sp_ms,
                 library_ms=s_lib, bound_ms=sb_ms, bound_by=sb_by,
             )
             report["gn_norm"] = dict(
                 shape=list(shape), dtype=dname, max_abs_err=err_n, tol="1e-2 + 1e-2|plain|",
-                ms=n_ms, plain_ms=device_ms(lambda: hk.gn_norm_plain(x, part, scale, bias, film=f), 5),
+                ms=n_ms, plain_ms=np_ms,
                 library_ms=None,  # no one PyTorch call normalizes from given statistics
                 bound_ms=nb_ms, bound_by=nb_by,
             )
@@ -262,8 +284,8 @@ def kernel_checks(hk, dev):
                            fp32_flops=4.0 * 2 * heads * t * t)
         say(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {lib_ms} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
-        rows["attention"].append(dict(shape=list(qkv.shape), heads=heads, ms=k_ms,
-                                      bound_ms=b_ms, library_ms=lib_ms))
+        rows["attention"].append(dict(shape=list(qkv.shape), heads=heads, ms=k_ms, plain_ms=p_ms,
+                                      bound_ms=b_ms, library_ms=lib_ms, max_abs_err=err))
         if t == 1024:
             report["attention"] = dict(
                 shape=list(qkv.shape), heads=heads, dtype="bfloat16", max_abs_err=err,
@@ -307,6 +329,81 @@ def kernel_checks(hk, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2, backward: gradients through the kernels' autograd Functions
+# ---------------------------------------------------------------------------
+
+BF16, FP32 = torch.bfloat16, torch.float32
+# (H, W, C, dtype) of every groupnorm_silu input of one chairs forward
+# (tests/test_torch_kernels.py::CHAIRS_GN records them from a forward).
+CHAIRS_GN = [
+    (8, 8, 1024, BF16), (64, 64, 256, BF16), (128, 128, 256, BF16), (32, 32, 512, BF16),
+    (16, 16, 768, BF16), (64, 64, 512, BF16), (128, 128, 512, BF16), (32, 32, 256, BF16),
+    (16, 16, 512, BF16), (8, 8, 768, BF16), (8, 8, 2048, BF16), (32, 32, 768, BF16),
+    (8, 8, 1792, BF16), (16, 16, 1024, BF16), (16, 16, 1792, BF16), (16, 16, 1536, BF16),
+    (16, 16, 1280, BF16), (32, 32, 1280, BF16), (32, 32, 1024, BF16), (64, 64, 768, BF16),
+    (128, 128, 256, FP32),
+]
+# groupnorm_silu inputs of the fp32 UNets run on the card (edit-gate toy, tiny)
+FP32_GN = [(16, 16, 32), (8, 8, 64), (8, 8, 128), (16, 16, 96), (16, 16, 16), (8, 8, 32),
+           (8, 8, 48), (16, 16, 48)]
+CHAIRS_ATTN = [(1024, 8, 64), (256, 12, 64), (64, 16, 64)]  # T, heads, head dim; bf16
+FP32_ATTN = [(64, 4, 16), (64, 4, 8)]  # the edit-gate toy's middle block; tiny
+GRAD_TOL = {BF16: 1e-2, FP32: 1e-5}  # of the largest gradient magnitude
+
+
+def grad_rel_err(fn, plain, inputs, seed) -> float:
+    """max |grad via fn - grad via plain| / max |grad via plain| over every
+    input, for the loss sum(out * r) with a random cotangent r."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    ref = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    r = torch.randn(out.shape, generator=gen, device=out.device).to(out.dtype)
+    got = torch.autograd.grad((out * r).float().sum(), leaves)
+    want = torch.autograd.grad((plain(*ref) * r).float().sum(), ref)
+    err = 0.0
+    for g, w in zip(got, want):
+        if not bool(g.isfinite().all()):
+            return float("inf")
+        err = max(err, max_err(g, w) / max(float(w.float().abs().max()), 1e-6))
+    return err
+
+
+def backward_checks(hk, dev, report) -> None:
+    from ishapediting_tpu_torch.ops.attention import dense_qkv_attention
+
+    say("[2] backward: autograd through each kernel's Function (kernel forward, plain "
+        "recompute) against autograd through the plain composition, batch 1")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    worst = {"gn": 0.0, "attention": 0.0, "attention_generic": 0.0}
+    cases = [(h, w, c, dt) for h, w, c, dt in CHAIRS_GN] + [(h, w, c, FP32) for h, w, c in FP32_GN]
+    for h, w, c, dtype in cases:
+        x, scale, bias, f = gn_inputs(gen, (1, h, w, c), dtype, True, dev)
+        err = grad_rel_err(lambda a, s, b, f1, f2: hk.groupnorm_silu(a, s, b, film=(f1, f2)),
+                           lambda a, s, b, f1, f2: hk.groupnorm_silu_plain(a, s, b, film=(f1, f2)),
+                           (x, scale, bias, *f), seed=c)
+        worst["gn"] = max(worst["gn"], err)
+        if not err <= GRAD_TOL[dtype]:
+            fail(f"groupnorm_silu gradient at [1,{h},{w},{c}] {dtype}: relative error {err:.2e}")
+    say(f"  groupnorm_silu, {len(cases)} inputs (21 chairs, {len(FP32_GN)} fp32 UNet): "
+        f"largest relative gradient error {worst['gn']:.2e} (tol 1e-2 bf16, 1e-5 fp32) ok")
+    for (t, heads, ch), dtype in [(a, BF16) for a in CHAIRS_ATTN] + [(a, FP32) for a in FP32_ATTN]:
+        qkv = torch.randn((1, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
+        err = grad_rel_err(lambda q: hk.attention_qkv(q, heads),
+                           lambda q: dense_qkv_attention(q, heads), (qkv,), seed=t + ch)
+        route = hk.attention_route(dtype, ch)
+        worst[route] = max(worst[route], err)
+        ok = err <= GRAD_TOL[dtype]
+        say(f"  {route} gradient T={t} H={heads} ch={ch} {str(dtype)[6:]}: relative error "
+            f"{err:.2e} (tol {GRAD_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{route} gradient disagrees with the plain composition's")
+    report["gn_stats"]["backward_rel_err"] = report["gn_norm"]["backward_rel_err"] = worst["gn"]
+    report["attention"]["backward_rel_err"] = worst["attention"]
+    report["attention_generic"]["backward_rel_err"] = worst["attention_generic"]
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the whole UNet, card against CPU, small input
 # ---------------------------------------------------------------------------
 
@@ -346,6 +443,41 @@ def unet_card_check(hk, dev, cfg, tol, what):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"UNet ({what}) {name} on the card disagrees with the CPU")
+
+
+def edit_gate_on_card(hk, counter, totals, device="cuda") -> dict:
+    """The committed toy system's gate on the card (fp32: gn kernels and the
+    generic attention), launch counts exact, then the same run on the CPU:
+    per-step motion losses within 1e-3 of the CPU's (relative)."""
+    from ishapediting_tpu_torch.edit.gate import engine_from_asset, gate_drags
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+
+    engine, asset = engine_from_asset(device=device)
+    per = kernel_calls_per_forward(engine.config.unet)
+    route = hk.attention_route(engine.config.unet.torch_compute_dtype,
+                               engine.config.unet.num_head_channels)
+    say("  edit gate (tests/assets/edit_gate.npz, toy fp32 UNet 16x16x24, w_time 12): "
+        "inversion with the recorded noises, scale-0 and guided replay drags, chunk 4")
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    base, guided, original, edited = gate_drags(engine, asset)
+    sync()
+    wall = time.perf_counter() - t0
+    check_counts(hk, "edit gate", counter.n, per, totals, route)
+    cpu_engine, _ = engine_from_asset(device="cpu")
+    cbase, cguided, _, _ = gate_drags(cpu_engine, asset)
+    reduction = 1.0 - guided[-1] / base[-1]
+    need = 0.5 * float(asset["achieved_reduction"])
+    rel = max(float(np.max(np.abs(a - b) / np.abs(b))) for a, b in ((base, cbase), (guided, cguided)))
+    say(f"  edit gate: motion {base[-1]:.4f} -> {guided[-1]:.4f}, reduction {reduction:+.4f} "
+        f"(need >= {need:.4f}: half of the recorded {float(asset['achieved_reduction']):.4f}; "
+        f"CPU run {1 - cguided[-1] / cbase[-1]:+.4f}), per-step motion losses vs CPU: relative "
+        f"error {rel:.2e} (tol 1e-3), edited mesh {len(edited.vertices)} vertices, wall {wall:.1f} s")
+    if not (reduction >= need and rel <= 1e-3 and len(edited.vertices) > 0):
+        fail("the edit gate does not hold on the card")
+    return dict(reduction=reduction, cpu_reduction=1 - cguided[-1] / cbase[-1], rel_err=rel, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -455,10 +587,264 @@ def run_engine(hk, counter, per_fwd, totals, cfg, label, phase="engine",
     )
     say(f"  {phase}: latent {lat.shape}, guidance cache {list(feats.shape)} {feats.dtype}, "
         f"mesh {len(engine.mesh.vertices)} vertices / {len(engine.mesh.triangles)} triangles, "
-        f"mesh walls {json.dumps({k: round(v, 3) for k, v in walls.items()})}, wall {wall:.1f} s")
+        f"mesh walls {fmt_walls(walls)}, wall {wall:.1f} s")
     if not ok:
         fail(f"{phase}: latent, guidance features or mesh not as expected")
-    return engine
+    return engine, lat, wall
+
+
+def fmt_walls(walls) -> str:
+    return json.dumps({k: round(v, 3) if isinstance(v, float) else v for k, v in walls.items()})
+
+
+def counted(hk, counter, per_fwd, totals, phase, fn, forwards):
+    """Run ``fn`` with the launch counters and the forward counter set to 0
+    just before and read just after: ``forwards`` UNet forwards, each
+    launching its calls per forward. Returns (fn's result, wall s)."""
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    if counter.n != forwards:
+        fail(f"{phase}: {counter.n} UNet forwards, expected {forwards}")
+    check_counts(hk, phase, counter.n, per_fwd, totals)
+    return out, wall
+
+
+def check_mesh(phase, mesh, walls=None):
+    ok = len(mesh.vertices) > 0 and len(mesh.triangles) > 0 and bool(np.isfinite(mesh.vertices).all())
+    say(f"  {phase}: mesh {len(mesh.vertices)} vertices / {len(mesh.triangles)} triangles"
+        + (f", mesh walls {fmt_walls(walls)}" if walls else ""))
+    if not ok:
+        fail(f"{phase}: empty or non-finite mesh")
+
+
+def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
+    """The editing path on the chairs engine after ``update_latent_params``:
+    resample drag over the whole w_time walk (step times from a synced
+    progress callback, one step per chunk), inversion of the generated
+    latent, replay drag, and the guided fit of the first generated mesh."""
+    w_time = engine.config.edit.w_time
+    first_mesh = engine.mesh0
+    v = first_mesh.vertices
+    handle = v[np.argmax(v[:, 0])].astype(np.float32)
+    src, tgt = handle[None], (handle + np.array([0.1, 0, 0], np.float32))[None]
+    out = {}
+
+    ticks = []
+
+    def tick(_):
+        sync()
+        ticks.append(time.perf_counter())
+
+    def drag(mode):
+        ticks.clear()
+        ticks.append(time.perf_counter())
+        return engine.drag_edit(src, tgt, seed=0, chunk=1, noise_mode=mode, progress_callback=tick)
+
+    for mode in ("resample", "replay"):
+        if mode == "replay":
+            say(f"  DragEngine.latent_inversion of the generated latent ({w_time} steps, "
+                f"inversion_chunk {engine.config.edit.inversion_chunk})")
+            _, wall = counted(hk, counter, per_fwd, totals, "inversion",
+                              lambda: engine.latent_inversion(x0),
+                              -(-w_time // engine.config.edit.inversion_chunk))
+            ok = (engine.feature_guidance.shape[0] == w_time
+                  and engine.variances.shape == (w_time, 1) + engine.config.latent_shape
+                  and all(bool(t.float().isfinite().all()) for t in
+                          (engine.w, engine.feature_guidance, engine.variances, engine.variance_noise)))
+            if not ok:
+                fail("inversion: recorded state not as expected")
+            out["inversion_s"] = engine.last_phase_walls["device_s"]
+            check_mesh("inversion", engine.mesh0, engine.last_mesh_walls)
+            say(f"  inversion: {out['inversion_s']:.3f} s for {w_time} steps on the card, wall "
+                f"{wall:.1f} s with the mesh")
+        say(f"  DragEngine.drag_edit noise_mode={mode!r}, {w_time} guided steps, one handle")
+        mesh, wall = counted(hk, counter, per_fwd, totals, f"drag {mode}", lambda: drag(mode), w_time)
+        steps = np.diff(ticks)
+        losses = engine.last_drag_losses
+        if not (np.isfinite(engine.edited_latent).all() and np.isfinite(losses["motion"]).all()
+                and len(losses["motion"]) == w_time):
+            fail(f"drag {mode}: latent or losses not finite")
+        check_mesh(f"drag {mode}", mesh, engine.last_mesh_walls)
+        steady = float(np.median(steps[2:]))
+        out[f"drag_{mode}_s_per_step"] = steady
+        out[f"drag_{mode}_walls"] = dict(engine.last_phase_walls)
+        out[f"drag_{mode}_mesh_walls"] = dict(engine.last_mesh_walls)
+        say(f"  drag {mode}: {steady:.4f} s/step steady state (median of steps 3-{w_time}; "
+            f"first {steps[0]:.3f} s), motion loss {losses['motion'][0]:.4g} -> "
+            f"{losses['motion'][-1]:.4g}, phase walls {fmt_walls(engine.last_phase_walls)}, "
+            f"wall {wall:.1f} s")
+
+    fit_dir = os.path.join(WORK, "fit")
+    fit_steps = 3
+    for run in ("first", "second"):
+        shutil.rmtree(fit_dir, ignore_errors=True)
+        say(f"  DragEngine.fit_real_shape of the first generated mesh ({len(first_mesh.triangles)} "
+            f"triangles), fit_steps {fit_steps}, {engine.config.fit.points_size} points, batch "
+            f"{engine.config.fit.batch_points} ({run} call)")
+        _, wall = counted(hk, counter, per_fwd, totals, f"fit ({run} call)",
+                          lambda: engine.fit_real_shape(mesh=first_mesh, path=fit_dir, seed=0,
+                                                        fit_steps=fit_steps),
+                          fit_steps + -(-w_time // engine.config.edit.inversion_chunk))
+        h, w, c = engine.config.latent_shape
+        tri = np.load(os.path.join(fit_dir, "tri_feat.npy"))
+        recon = os.path.join(fit_dir, "mesh_recon.obj")
+        if tri.shape != (1, c, h, w) or not np.isfinite(tri).all() or os.path.getsize(recon) == 0:
+            fail("fit: tri_feat.npy or mesh_recon.obj not as expected")
+        check_mesh("fit", engine.mesh0, engine.last_mesh_walls)
+        walls = engine.last_phase_walls
+        out[f"fit_{run}_s_per_step"] = walls["guided_s"] / fit_steps
+        out[f"fit_{run}_walls"] = dict(walls)
+        say(f"  fit ({run} call): {walls['guided_s'] / fit_steps:.4f} s/step over {fit_steps} guided "
+            f"steps{' (cuDNN timing the backward shapes of the head included)' if run == 'first' else ''}, "
+            f"inversion {walls['inversion_device_s']:.3f} s, phase walls {fmt_walls(walls)}, "
+            f"wall {wall:.1f} s")
+    shutil.rmtree(fit_dir)  # the 256^3 OBJ of random weights is large
+    return out
+
+
+def engine_steps(cfg) -> int:
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+
+    d = cfg.diffusion
+    return make_schedule(d.base_steps, d.noise_schedule, d.timestep_respacing).num_timesteps
+
+
+def run_cli_edit(hk, counter, per_fwd, totals, preset_name="chairs", num_steps=200,
+                 edit_steps=10, device="cuda") -> float:
+    """``cli.edit`` at chairs width: 200-step generation (w_time 170), one
+    handle, a 10-step fast drag, original and edited 256^3 meshes."""
+    from ishapediting_tpu_torch.cli.edit import main as edit_main
+    from ishapediting_tpu_torch.config import preset
+
+    out = os.path.join(WORK, "cli_edit")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = ["--random_init", "--preset", preset_name, "--num_steps", str(num_steps),
+            "--latent_seed", "0", "--source", "0.5", "0", "0", "--target", "0.6", "0", "0",
+            "--edit_steps", str(edit_steps), "--out", out, "--device", device]
+    cfg = preset(preset_name, num_steps)
+    say(f"  python -m ishapediting_tpu_torch.cli.edit {' '.join(argv)}")
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return edit_main(argv)
+
+    engine, wall = counted(hk, counter, per_fwd, totals, "cli.edit", run,
+                           engine_steps(cfg) + min(edit_steps, cfg.edit.w_time))
+    for f in ("original.obj", "edit00.obj", "EditLog"):
+        if not os.path.exists(os.path.join(out, f)) or os.path.getsize(os.path.join(out, f)) == 0:
+            fail(f"cli.edit: {f} missing or empty")
+    if not np.isfinite(engine.edited_latent).all():
+        fail("cli.edit: edited latent not finite")
+    size_mb = sum(os.path.getsize(os.path.join(out, f)) for f in ("original.obj", "edit00.obj")) / 1e6
+    shutil.rmtree(out)
+    say(f"  cli.edit: seed -> edited mesh {wall:.1f} s (200 generation steps, 10 guided steps, "
+        f"two 256^3 meshes, {size_mb:.0f} MB of OBJ), drag walls "
+        f"{fmt_walls(engine.last_phase_walls)}, edited mesh walls {fmt_walls(engine.last_mesh_walls)}")
+    return wall
+
+
+def march_compare(engine, x0) -> dict:
+    """Device marching against host marching on the same 256^3 grid (decoded
+    once, through fp16): equal triangle and vertex counts; triangle
+    signatures (centroid, area; [-1,1] units) matched both ways within 2e-4
+    in three slabs; the matched triangles wound alike, but for at most 1e-4
+    of them (fp32 against fp64 near a zero of the orientation test), where
+    both paths orient by the same rule: centroid rounding to an index off
+    the grid's border and lying on no half-voxel tie. (The host's native
+    C++, bit-equal to the JAX package's, takes un-normalized differences,
+    which weigh a border axis half as much, and rounds ties away from zero;
+    the device path, like JAX's, takes ``np.gradient``'s stencil and rounds
+    ties to even: tests/test_torch_marching.py.) Signed volumes are printed,
+    not held: on random weights the surface's many components nearly cancel
+    (a few thousandths of the cube), so a relative bound on it says little."""
+    from scipy.spatial import cKDTree
+
+    from ishapediting_tpu_torch.geometry.marching import grid_to_mesh
+    from ishapediting_tpu_torch.ops.marching import device_grid_to_mesh
+
+    res = engine.config.edit.shape_resolution
+    with torch.no_grad():
+        grid = engine._decode_grid(torch.as_tensor(x0), res).float()
+    sync()
+    device_grid_to_mesh(grid)  # first call: allocator and kernel warm-up
+    times = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        dev, stats = device_grid_to_mesh(grid)
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host_grid = grid.cpu().numpy()
+    fetch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = grid_to_mesh(host_grid, iso=0.0, to_unit=True)
+    host_s = time.perf_counter() - t0
+
+    def sig(m):
+        v, t = m.vertices, m.triangles
+        area = 0.5 * np.linalg.norm(np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]]), axis=1)
+        return np.concatenate([v[t].mean(axis=1), area[:, None]], axis=1)
+
+    def interior_volume(m):
+        v, t = m.vertices, m.triangles
+        cen = (v[t].mean(axis=1) + 1.0) * res / 2.0  # voxel units
+        vox = np.rint(cen)
+        half = (np.abs(cen - np.floor(cen) - 0.5) < 1e-4).any(axis=1)  # fp32 centroid ties too
+        keep = ((vox > 0) & (vox < res - 1)).all(axis=1) & ~half
+        tk = t[keep]
+        vol = float(np.einsum("ij,ij->", v[tk[:, 0]], np.cross(v[tk[:, 1]], v[tk[:, 2]]))) / 6.0
+        full = float(np.einsum("ij,ij->", v[t[:, 0]], np.cross(v[t[:, 1]], v[t[:, 2]]))) / 6.0
+        return vol, full, int((~keep).sum())
+
+    def normals(m):
+        v, t = m.vertices, m.triangles
+        return np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
+
+    sd, sh = sig(dev), sig(host)
+    nd, nh = normals(dev), normals(host)
+    cen = (sd[:, :3] + 1.0) * res / 2.0  # voxel units
+    same_rule = (((np.rint(cen) > 0) & (np.rint(cen) < res - 1)).all(axis=1)
+                 & ~(np.abs(cen - np.floor(cen) - 0.5) < 1e-4).any(axis=1)  # fp32 ties too
+                 & (np.linalg.norm(nd, axis=1) > 1e-12))
+    worst, checked, compared, flips = 0.0, 0, 0, 0
+    for x0s in (-0.5, 0.0, 0.5):
+        for a, b, dev_side in ((sd, sh, True), (sh, sd, False)):
+            inner = (a[:, 0] > x0s + 1e-3) & (a[:, 0] < x0s + 0.02 - 1e-3)
+            outer = np.nonzero((b[:, 0] >= x0s) & (b[:, 0] <= x0s + 0.02))[0]
+            if not inner.any():
+                continue
+            dist, idx = cKDTree(b[outer]).query(a[inner])
+            worst = max(worst, float(dist.max()))
+            checked += int(inner.sum())
+            if dev_side:  # winding of the matched pairs the two rules decide alike
+                rule = same_rule[inner]
+                dots = (nd[inner] * nh[outer[idx]]).sum(axis=1)
+                compared += int(rule.sum())
+                flips += int((rule & (dots < 0)).sum())
+    vd, fd, bd = interior_volume(dev)
+    vh, fh, bh = interior_volume(host)
+    dev_s = min(times)
+    say(f"  256^3 march: device {dev_s:.3f} s ({stats['march_cells']} active cells, "
+        f"{stats['march_tris']} triangles, {len(dev.vertices)} vertices; runs {times}), host "
+        f"{host_s:.3f} s (+ {fetch_s:.3f} s grid fetch; {len(host.triangles)} triangles, "
+        f"{len(host.vertices)} vertices); signatures: {checked} triangles matched, largest "
+        f"distance {worst:.2e} (tol 2e-4); winding: {flips} of {compared} matched triangles off "
+        f"the border and ties differ (tol 1e-4 of them); signed volume off the border and ties "
+        f"device {vd:.6f} host {vh:.6f}, whole mesh {fd:.6f} / {fh:.6f} ({bd} triangles on the "
+        f"border or a tie)")
+    if not (len(dev.triangles) == len(host.triangles) > 0 and len(dev.vertices) == len(host.vertices)
+            and checked > 0 and worst < 2e-4 and compared > 0 and flips <= 1e-4 * compared):
+        fail("device marching disagrees with host marching on the 256^3 grid")
+    return dict(device_march_s=dev_s, host_march_s=host_s, grid_fetch_s=fetch_s,
+                march_cells=stats["march_cells"], march_tris=stats["march_tris"],
+                n_verts=len(dev.vertices), signature_err=worst, winding_flips=flips,
+                winding_compared=compared)
 
 
 def unet_forward_ms(engine, batch):
@@ -549,7 +935,9 @@ def main() -> None:
     set_cuda_flags()
 
     report = kernel_checks(hk, dev)
-    say("[3] UNet on the card (kernels) against the CPU (plain versions), small input")
+    backward_checks(hk, dev, report)
+    say("[3] UNet on the card (kernels) against the CPU (plain versions), small input; "
+        "the edit gate")
     unet_card_check(hk, dev, UNetConfig(
         image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
         attention_ds=(2,), channel_mult=(1, 2), num_head_channels=64, dropout=0.0,
@@ -563,9 +951,11 @@ def main() -> None:
         f"calls ({hk.attention_route(tiny.unet.torch_compute_dtype, tiny.unet.num_head_channels)})")
     run_engine(hk, counter, tiny_fwd, totals, tiny, "preset('tiny')", "tiny engine",
                attn_kernel="attention_generic")
+    gate = edit_gate_on_card(hk, counter, totals)
 
     say("[4] main path, published chairs config at full width, random weights "
-        "(step counts cut to 10/10/20; widths as published)")
+        "(step counts cut: 10/10/20-step sampling, w_time 10, fit 3 steps, cli.edit 200 "
+        "generation + 10 guided steps; widths and the 256^3 grid as published)")
     chairs = preset("chairs", 20)
     per_fwd = kernel_calls_per_forward(chairs.unet)
     say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
@@ -573,9 +963,14 @@ def main() -> None:
     run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
     chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
         chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
-    engine = run_engine(hk, counter, per_fwd, totals, chairs,
-                        "preset('chairs', 20), w_time=10, feat_layer=8")
+    engine, lat, gen_wall = run_engine(hk, counter, per_fwd, totals, chairs,
+                                       "preset('chairs', 20), w_time=10, feat_layer=8")
+    edits = chairs_edit_runs(hk, counter, per_fwd, totals, engine, lat)
+    say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
+        f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
+    edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals)
     counter.close()
+    edits["march"] = march_compare(engine, lat)
     per_forward = forward_accounting(engine)
     fwd_ms = {b: unet_forward_ms(engine, b) for b in (1, 2)}
     steady_s = ddim_steady_s(engine)
@@ -596,7 +991,9 @@ def main() -> None:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
             shapes=r["shapes"], per_forward={b: per_forward[b][name] for b in per_forward},
+            backward_rel_err=r["backward_rel_err"],
         ))
+    say("edit path: " + json.dumps({"gate": gate, **edits}, default=float))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

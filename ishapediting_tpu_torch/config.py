@@ -183,6 +183,16 @@ class PipelineConfig:
         )
 
 
+def with_feat_store_dtype(config: PipelineConfig, dtype: Optional[str]) -> PipelineConfig:
+    """Override ``edit.feat_store_dtype`` when ``dtype`` is given; ``None``
+    keeps what the config already says."""
+    if dtype is None or dtype == config.edit.feat_store_dtype:
+        return config
+    return dataclasses.replace(
+        config, edit=dataclasses.replace(config.edit, feat_store_dtype=dtype)
+    )
+
+
 def preset(
     category: str = "chairs", num_steps: int = 200, use_ddim: bool = False
 ) -> PipelineConfig:

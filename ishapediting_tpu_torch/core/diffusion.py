@@ -408,3 +408,93 @@ def sample_loop_with_features(
             feats.append(feat_postprocess(out["inter_feat"]))
         x = out["sample"]
     return {"sample": x, "w": w, "features": torch.stack(feats)}
+
+
+def ddpm_inversion(
+    sched: Schedule,
+    model_fn: ModelFn,
+    x0: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    steps: int,
+    feat_postprocess: Callable[[torch.Tensor], torch.Tensor],
+    clip_denoised: bool = True,
+    chunk: int = 8,
+    noises: Optional[Sequence[torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Edit-friendly DDPM inversion (reference: gaussian_diffusion.py:512-532).
+
+    Forward: the stochastic chain x_{t+1} = sqrt(abar_t/abar_{t-1}) x_t +
+    sqrt(1 - .) noise_t, t = 0..steps-1, every state kept; ``noises[t]``
+    replaces the draw of step t. Backward: the model mean at each x_{t+1},
+    and ``variance_noise_t = x_t - mean_t``, so that replaying
+    ``mean + variance_noise`` reproduces x_0 exactly. The backward model
+    evaluations are independent of each other, so they run ``chunk`` steps
+    per forward, as a batch of ``chunk * B`` (the last chunk padded with
+    copies of the last step).
+
+    Returns, ordered like the reference's lists (index k <-> t = steps-1-k):
+    ``latent`` x_steps [B, ...]; ``features`` [steps, B, ...];
+    ``variances`` and ``variance_noise`` [steps, B, ...]; ``sample`` x_0."""
+    nd = x0.ndim
+    b = x0.shape[0]
+    sched = sched.to(x0.device)
+    x = x0.float()
+    x_inter = [x]
+    for t in range(steps):
+        tb = _tb(x, t)
+        cof = extract(sched.alphas_cumprod, tb, nd) / extract(sched.alphas_cumprod_prev, tb, nd)
+        noise = _step_noise(noises, t, x)
+        if noise is None:
+            noise = _randn(x, generator)
+        x = torch.sqrt(cof) * x + torch.sqrt(1.0 - cof) * noise
+        x_inter.append(x)
+
+    xin = torch.stack(x_inter[1:])  # [steps, B, ...] = x_{t+1}, t ascending
+    ts = list(range(steps))
+    pad = (-steps) % chunk
+    if pad:
+        xin = torch.cat([xin, xin[-1:].expand(pad, *xin.shape[1:])])
+        ts += [steps - 1] * pad
+    means, variances, feats = [], [], []
+    for c0 in range(0, len(ts), chunk):
+        xc = xin[c0 : c0 + chunk]
+        tf = torch.tensor(ts[c0 : c0 + chunk], dtype=torch.long, device=x0.device).repeat_interleave(b)
+        out = p_mean_variance(sched, model_fn, xc.reshape((-1,) + xc.shape[2:]), tf,
+                              clip_denoised=clip_denoised)
+        f = feat_postprocess(out.feat)
+        means.append(out.mean.reshape(xc.shape))
+        variances.append(out.variance.reshape(xc.shape))
+        feats.append(f.reshape((xc.shape[0], b) + f.shape[1:]))
+    means = torch.cat(means)[:steps]
+    variances = torch.cat(variances)[:steps]
+    feats = torch.cat(feats)[:steps]
+    variance_noise = torch.stack(x_inter[:steps]) - means
+    return {
+        "latent": x_inter[steps],
+        "features": feats.flip(0),
+        "variances": variances.flip(0),
+        "variance_noise": variance_noise.flip(0),
+        "sample": x_inter[0],
+    }
+
+
+def guided_sample_loop(
+    sched: Schedule,
+    x_T: torch.Tensor,
+    *,
+    guidance_fn: Callable[[torch.Tensor, torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    t_start: Optional[int] = None,
+) -> torch.Tensor:
+    """Classifier-guided sampling loop (reference: drag_utils.py:443-463):
+    ``x_{t-1} = sample + variance * grad`` for t = t_start-1 .. 0.
+
+    ``guidance_fn(x, t_batch, i) -> (grad, sample, variance)`` runs one
+    sampling step (``i`` is the loop index, for per-step noise), differentiates
+    through the model itself and returns the already-scaled gradient."""
+    t_start = sched.num_timesteps if t_start is None else t_start
+    x = x_T.float()
+    for i, t in enumerate(range(t_start - 1, -1, -1)):
+        grad, sample, variance = guidance_fn(x, _tb(x, t), i)
+        x = sample + variance * grad
+    return x

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -254,6 +254,29 @@ def respaced_schedule_from_keep(
         base_steps,
         rescale_timesteps,
     )
+
+
+def fast_edit_schedule(
+    sched: Schedule,
+    base_betas: np.ndarray,
+    w_time: int,
+    count: int,
+    rescale_timesteps: bool = False,
+) -> Tuple[Schedule, np.ndarray]:
+    """Window-respaced schedule for fast drag editing: the first ``w_time``
+    positions of ``sched``'s chain respaced to ``count`` kept positions
+    (``space_timesteps``), later positions kept as they are, so cumulative
+    alphas match ``sched`` at every kept position and an inversion's ``w``
+    is a valid start. Returns ``(schedule, positions)``: fast step ``j`` is
+    full-chain position ``positions[j]`` (ascending), i.e. feature-cache row
+    ``w_time - 1 - positions[j]``."""
+    if not 2 <= count < w_time:
+        raise ValueError(f"edit_steps must be in [2, w_time={w_time}); got {count}")
+    positions = np.array(sorted(space_timesteps(w_time, [count])), np.int32)
+    tmap = sched.timestep_map.cpu().numpy()
+    keep = {int(tmap[p]) for p in positions} | {int(t) for t in tmap[w_time:]}
+    fast = respaced_schedule_from_keep(base_betas, keep, rescale_timesteps=rescale_timesteps)
+    return fast, positions
 
 
 def validate_w_time(sched: Schedule, w_time: int, context: str = "") -> int:

@@ -1,11 +1,13 @@
-"""Triangle-mesh container with the host-side ops the generation path needs:
-degenerate-triangle removal, Laplacian smoothing and OBJ input/output
-(replacing the reference's Open3D TriangleMesh for these)."""
+"""Triangle-mesh container with the host-side ops the generation and
+editing paths need: normalization into [-1, 1]^3, area-uniform surface
+sampling, degenerate-triangle removal, Laplacian smoothing and OBJ
+input/output (replacing the reference's Open3D TriangleMesh for these)."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -21,6 +23,39 @@ class TriMesh:
 
     def copy(self) -> "TriMesh":
         return TriMesh(self.vertices.copy(), self.triangles.copy())
+
+    def normalize_unit_cube(self, eps: float = 1e-2) -> "TriMesh":
+        """Scale/translate into [-1,1]^3 as the reference GUI does on load
+        (main.py:425-430, drag_utils.py:418-426): only when out of bounds;
+        centered at the vertex mean; scaled only if the extent exceeds 2.
+        In place; returns self."""
+        mn, mx = self.vertices.min(axis=0), self.vertices.max(axis=0)
+        extent = mx - mn
+        if np.any(mn < -1) or np.any(mx > 1):
+            self.vertices = self.vertices - self.vertices.mean(axis=0)
+            if extent.max() > 2:
+                self.vertices = self.vertices * (2.0 / (extent.max() + eps))
+        return self
+
+    def triangle_areas(self) -> np.ndarray:
+        v, t = self.vertices, self.triangles
+        cross = np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
+        return 0.5 * np.linalg.norm(cross, axis=1)
+
+    def sample_points_uniformly(self, number_of_points: int, seed: Optional[int] = None) -> np.ndarray:
+        """Area-weighted uniform surface sampling -> [N, 3] (Open3D
+        sample_points_uniformly), the JAX package's draw order."""
+        rng = np.random.default_rng(seed)
+        areas = self.triangle_areas()
+        idx = rng.choice(len(areas), size=number_of_points, p=areas / areas.sum())
+        u = rng.random(number_of_points)
+        v = rng.random(number_of_points)
+        flip = u + v > 1
+        u[flip] = 1 - u[flip]
+        v[flip] = 1 - v[flip]
+        t = self.triangles[idx]
+        a, b, c = (self.vertices[t[:, k]] for k in range(3))
+        return a + u[:, None] * (b - a) + v[:, None] * (c - a)
 
     def remove_degenerate_triangles(self) -> "TriMesh":
         t = self.triangles

@@ -1,4 +1,5 @@
-"""Native C++ host geometry (marching tetrahedra, smoothing, OBJ writer).
+"""Native C++ host geometry (marching tetrahedra, smoothing, OBJ writer,
+point-in-mesh occupancy).
 
 The library builds with g++ at first use into ``build/native/`` at the root
 of the checkout (a directory ``.gitignore`` lists), never into the package.
@@ -57,6 +58,8 @@ def get_lib() -> ctypes.CDLL:
         lib.smooth_simple.argtypes = [dp, ll, lp, ll, ll, dp]
         lib.write_obj.restype = ll
         lib.write_obj.argtypes = [ctypes.c_char_p, dp, ll, lp, ll]
+        lib.points_occupancy.restype = None
+        lib.points_occupancy.argtypes = [dp, ll, lp, ll, dp, ll, dp]
         _lib = lib
         return lib
 
@@ -115,3 +118,20 @@ def native_write_obj(vertices: np.ndarray, triangles: np.ndarray, path: str) -> 
     )
     if rc != 0:
         raise OSError(f"native write_obj failed (rc={rc}): {path}")
+
+
+def native_points_occupancy(vertices: np.ndarray, triangles: np.ndarray, points: np.ndarray) -> np.ndarray:
+    """C++ vertical-ray parity test: 1.0 where a point lies inside the
+    (watertight) mesh, else 0.0, as [n] f64."""
+    lib = get_lib()
+    v = np.ascontiguousarray(vertices, dtype=np.float64)
+    t = np.ascontiguousarray(triangles, dtype=np.int64)
+    p = np.ascontiguousarray(points, dtype=np.float64).reshape(-1, 3)
+    out = np.zeros(len(p), dtype=np.float64)
+    lib.points_occupancy(
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(v),
+        t.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(t),
+        p.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(p),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out

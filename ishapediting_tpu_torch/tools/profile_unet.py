@@ -1,13 +1,17 @@
-"""Where one chairs UNet forward spends its device time, on one CUDA card.
+"""Where one chairs UNet forward (and one guided drag step) spends its
+device time, on one CUDA card.
 
-    python -m ishapediting_tpu_torch.tools.profile_unet --batch 1 2
+    python -m ishapediting_tpu_torch.tools.profile_unet --batch 1 2 [--drag]
 
 For each batch size: the steady-state forward time (CUDA events), the
 device time of the kernels per forward and the device's idle share, each
 hand-written kernel's device ms, launches and summed bound per forward, and
 a ``torch.profiler`` table of device time by kernel name over a few
 forwards, on random weights from a seed. Prints the card's name and power
-limit first.
+limit first. ``--drag`` does the same for one drag step at batch 1
+(``edit/drag.py::make_drag_step``: the forward with its feature tap, the
+drag losses and ``torch.autograd.grad`` through the whole UNet, whose
+GroupNorm-SiLU and attention backward recompute the plain versions).
 
 The summed bound of a kernel is, over the launches of one forward as
 ``hopper_kernels.record_launches`` lists them (shapes recorded during the
@@ -67,6 +71,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, nargs="+", default=[1, 2])
     p.add_argument("--rows", type=int, default=15, help="kernel names to list")
+    p.add_argument("--drag", action="store_true",
+                   help="also profile one guided drag step at batch 1 (forward + backward)")
     p.add_argument("--no_cudnn_benchmark", action="store_true",
                    help="take cuDNN's heuristic algorithm choice instead of timing")
     args = p.parse_args(argv)
@@ -86,26 +92,51 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.device(dev):
         unet = init_unet_(UNetModel(cfg.unet), gen).eval().requires_grad_(False)
+    runs = []
     for batch in args.batch:
         x = torch.randn((batch,) + cfg.latent_shape, generator=gen, device=dev)
         t = torch.full((batch,), 500, dtype=torch.long, device=dev)
 
-        def fwd():
+        def fwd(x=x, t=t):
             with torch.no_grad():
                 unet(x, t)
 
-        ms = cuda_ms(fwd, ITERS)
-        acc = kernel_accounting(fwd)
+        runs.append((f"batch {batch}: forward", fwd))
+    if args.drag:
+        runs.append(("batch 1: drag step", drag_step_fn(unet, cfg, gen, dev)))
+    for label, fn in runs:
+        ms = cuda_ms(fn, ITERS)
+        acc = kernel_accounting(fn)
         busy = acc["busy_ms"]
-        print(f"batch {batch}: forward {ms:.3f} ms (CUDA events); kernels busy {busy:.3f} ms "
-              f"per forward (profiler), device idle {1 - busy / ms:.1%}")
+        print(f"{label} {ms:.3f} ms (CUDA events); kernels busy {busy:.3f} ms "
+              f"per call (profiler), device idle {1 - busy / ms:.1%}")
         for key, k in acc["kernels"].items():
-            print(f"  {key}: {k['ms']:.4f} ms, {k['launches']} launches per forward, "
+            print(f"  {key}: {k['ms']:.4f} ms, {k['launches']} launches per call, "
                   f"summed bound {k['bound_ms']:.4f} ms")
         events = sorted(acc["events"], key=lambda e: -e.self_device_time_total)
         for e in events[: args.rows]:
             print(f"  {e.self_device_time_total / 1e3 / ITERS:9.3f} ms "
                   f"{e.count // ITERS:5d}x  {e.key[:110]}")
+
+
+def drag_step_fn(unet, cfg, gen, dev):
+    """One guided drag step of the config's edit settings at batch 1, in the
+    middle of its chain, one handle, against the features of a first forward."""
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.edit.drag import build_drag_problem, make_drag_step
+    from ishapediting_tpu_torch.edit.features import regroup_features
+
+    d, e = cfg.diffusion, cfg.edit
+    sched = make_schedule(d.base_steps, d.noise_schedule, d.timestep_respacing).to(dev)
+    x = torch.randn((1,) + cfg.latent_shape, generator=gen, device=dev)
+    with torch.no_grad():
+        _, feat = unet(x, torch.full((1,), 500, dtype=torch.long, device=dev), feat_layer=e.feat_layer)
+    origin = regroup_features(feat)[0]
+    problem = build_drag_problem([[0.5, 0.0, 0.0]], [[0.6, 0.0, 0.0]], r1=e.r1, voxel_size=e.voxel_size,
+                                 feat_width=origin.shape[-2], device=dev)
+    step = make_drag_step(sched, lambda a, b: unet(a, b, feat_layer=e.feat_layer), problem,
+                          scale=e.grad_scale, cof=e.mask_weight)
+    return lambda: step(x, sched.num_timesteps // 2, origin, gen)
 
 
 if __name__ == "__main__":

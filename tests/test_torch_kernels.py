@@ -547,3 +547,142 @@ def test_gn_stats_chairs_on_card(cuda_device, h, w, c, dtype, n):
     v_ref, mu_ref = torch.var_mean(x.double().reshape(n, h * w, g, c // g), dim=(1, 3), correction=0)
     torch.testing.assert_close(mu, mu_ref, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(var, v_ref, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Slice 4: gradients through the kernels' autograd Functions, device marching
+# ---------------------------------------------------------------------------
+
+# Attention inputs of one chairs forward (T, heads; head dim 64, bf16) and of
+# the fp32 UNets run on the card: the edit-gate toy (middle block, head dim
+# 16) and the tiny preset (head dim 8).
+CHAIRS_ATTN = [(1024, 8), (256, 12), (64, 16)]
+FP32_ATTN = [(64, 4, 16), (64, 4, 8)]
+# GroupNorm-SiLU inputs of the fp32 UNets (toy edit gate; tiny preset).
+FP32_GN = [(16, 16, 32), (8, 8, 64), (8, 8, 128), (16, 16, 96), (16, 16, 16), (8, 8, 32),
+           (8, 8, 48), (16, 16, 48)]
+
+
+def grad_pair(fn, plain, inputs, seed):
+    """Gradients of sum(out * r) with respect to every input, through ``fn``
+    (the autograd Function: kernel forward, plain recompute backward) and
+    through ``plain`` (autograd through the composition), on the same CUDA
+    inputs and the same random cotangent r."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    ref = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    r = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(seed),
+                    device=out.device).to(out.dtype)
+    got = torch.autograd.grad((out * r).float().sum(), leaves)
+    want = torch.autograd.grad((plain(*ref) * r).float().sum(), ref)
+    return got, want
+
+
+def _assert_grads_close(got, want, rel):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and bool(g.isfinite().all())
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(), atol=rel * max(scale, 1e-6), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("h,w,c,dtype", CHAIRS_GN)
+def test_groupnorm_silu_grad_chairs_on_card(cuda_device, h, w, c, dtype, n):
+    """d/d(x, scale, bias, FiLM) through ``groupnorm_silu`` (gn_stats +
+    gn_norm forward) against autograd through the plain composition, at
+    every chairs input, batch 1 and 8: within 1e-2 (bf16) / 1e-5 (fp32) of
+    the largest gradient. The backward recomputes the plain forward, so the
+    two differ only through the forward's rounding into y (none: y's value
+    does not enter the gradient of sum(y * r))."""
+    rng = np.random.default_rng(h * c + n)
+    x = torch.from_numpy((rng.normal(size=(n, h, w, c)) * 2 + 0.5).astype(np.float32)).to(cuda_device, dtype)
+    scale = torch.from_numpy((rng.normal(size=c) * 0.1 + 1).astype(np.float32)).to(cuda_device)
+    bias = torch.from_numpy((rng.normal(size=c) * 0.1).astype(np.float32)).to(cuda_device)
+    fs, fb = (torch.from_numpy((rng.normal(size=(n, c)) * 0.2).astype(np.float32)).to(cuda_device, dtype)
+              for _ in range(2))
+    before = dict(hk.LAUNCHES)
+    got, want = grad_pair(lambda a, s, b, f1, f2: hk.groupnorm_silu(a, s, b, film=(f1, f2)),
+                          lambda a, s, b, f1, f2: hk.groupnorm_silu_plain(a, s, b, film=(f1, f2)),
+                          (x, scale, bias, fs, fb), seed=c)
+    torch.cuda.synchronize()
+    # one forward launch each; the backward launches no kernel
+    assert hk.LAUNCHES["gn_stats"] == before["gn_stats"] + 1
+    assert hk.LAUNCHES["gn_norm"] == before["gn_norm"] + 1
+    _assert_grads_close(got, want, 1e-2 if dtype == BF16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", FP32_GN)
+def test_groupnorm_silu_grad_fp32_unets_on_card(cuda_device, h, w, c):
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy((rng.normal(size=(1, h, w, c)) * 2).astype(np.float32)).to(cuda_device)
+    scale = torch.ones(c, device=cuda_device) * 1.1
+    bias = torch.full((c,), 0.1, device=cuda_device)
+    got, want = grad_pair(lambda a, s, b: hk.groupnorm_silu(a, s, b),
+                          lambda a, s, b: hk.groupnorm_silu_plain(a, s, b), (x, scale, bias), seed=c)
+    _assert_grads_close(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("t,heads", CHAIRS_ATTN)
+def test_attention_grad_chairs_on_card(cuda_device, t, heads, n):
+    """d/d(qkv) through ``attention_qkv`` (wgmma kernel forward) against
+    autograd through ``dense_qkv_attention``, bf16 at batch 1 and 8: within
+    1e-2 of the largest gradient; one forward launch, none in the backward."""
+    rng = np.random.default_rng(t + n)
+    qkv = torch.from_numpy(rng.normal(size=(n, t, heads * 3 * 64)).astype(np.float32))
+    qkv = qkv.to(cuda_device, BF16)
+    before = dict(hk.LAUNCHES)
+    got, want = grad_pair(lambda q: hk.attention_qkv(q, heads),
+                          lambda q: dense_qkv_attention(q, heads), (qkv,), seed=t)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["attention"] == before["attention"] + 1
+    assert hk.LAUNCHES["attention_generic"] == before["attention_generic"]
+    _assert_grads_close(got, want, 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("t,heads,ch", FP32_ATTN)
+def test_attention_generic_grad_on_card(cuda_device, t, heads, ch, n):
+    rng = np.random.default_rng(ch + n)
+    qkv = torch.from_numpy(rng.normal(size=(n, t, heads * 3 * ch)).astype(np.float32)).to(cuda_device)
+    before = dict(hk.LAUNCHES)
+    got, want = grad_pair(lambda q: hk.attention_qkv(q, heads),
+                          lambda q: dense_qkv_attention(q, heads), (qkv,), seed=ch)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["attention_generic"] == before["attention_generic"] + 1
+    _assert_grads_close(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res,seed", [(48, 0), (96, 1)])
+def test_device_marching_on_card_matches_cpu(cuda_device, res, seed):
+    """``ops/marching.py`` on a CUDA grid against the same function on the
+    CPU: equal counts, the same triangles in the same order (the same keys,
+    weld and compaction; corners compared as sets, since fused multiply-adds
+    on the card may flip the winding of a triangle whose normal is nearly
+    orthogonal to the gradient), signed volume to a relative 1e-6, vertices
+    to 1e-9 voxel (fp64 from the same fp32 t)."""
+    from ishapediting_tpu_torch.ops.marching import marching_tets_device
+
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1, 1, res, dtype=np.float32)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    g = (0.5 - np.sqrt(X**2 + 1.3 * Y**2 + 0.7 * Z**2) + 0.1 * np.sin(6 * X) * np.cos(5 * Z)
+         + 0.05 * rng.normal(size=X.shape)).astype(np.float32)
+    cpu = marching_tets_device(torch.from_numpy(g))
+    dev = marching_tets_device(torch.from_numpy(g).to(cuda_device))
+    assert dev["vertices"].is_cuda and dev["triangles"].is_cuda
+    assert (dev["n_cells"], dev["n_tris"]) == (cpu["n_cells"], cpu["n_tris"]) and cpu["n_tris"] > 0
+    dt, ct = dev["triangles"].cpu(), cpu["triangles"]
+    torch.testing.assert_close(dt.sort(dim=1).values, ct.sort(dim=1).values, atol=0, rtol=0)
+    torch.testing.assert_close(dev["vertices"].cpu(), cpu["vertices"], atol=1e-9, rtol=0)
+
+    def volume(v, t):
+        v = v.cpu().double()
+        return float((v[t[:, 0]] * torch.linalg.cross(v[t[:, 1]], v[t[:, 2]])).sum()) / 6
+
+    assert volume(dev["vertices"], dt) == pytest.approx(volume(cpu["vertices"], ct), rel=1e-6)
