@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation and editing paths once on one NVIDIA
-card.
+"""Drive the PyTorch port's generation, editing and serving paths once on
+one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
 
@@ -42,13 +42,24 @@ Phases, each fatal on failure (exit code 1, no result line):
    one 256^3 grid; then each kernel's device ms, launches and summed bound
    per chairs forward at batch 1 and 2
    (``tools/profile_unet.py::kernel_accounting``);
-   in every run of phases 3 and 4 the launch counters are reset just before
+   in every run of phases 3 to 5 the launch counters are reset just before
    it and read just after it, and each must equal the UNet forwards of that
    run times the kernel's calls per forward (a drag or fit step is one
    forward; its backward recomputes through the plain versions and launches
-   nothing; chairs runs launch no generic attention, the fp32 runs no wgmma
-   attention);
-5. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+   nothing, but under remat it runs the blocks the loss reaches a second
+   time, ``models/unet.py::kernel_calls_recomputed`` per step; chairs runs
+   launch no generic attention, the fp32 runs no wgmma attention);
+5. the serving surfaces on the same chairs engine: ``fit_real_shape_direct``
+   of the first 256^3 mesh at the published ``FitConfig`` (its loss must
+   fall), ``morph`` of two ``sample_latent``s at 3 frames, ``cli.morph``,
+   ``cli.batch_edit`` on 2 seeds (batched generation, inversion, replay
+   drag, four 256^3 meshes), ``drag_edit_batched`` on its records without
+   and with remat, held to two single-shape ``drag_edit`` runs with the same
+   noises and to each other, ``fit_real_shapes_batched`` of two 256^3
+   meshes, and a ``cli.serve`` session through ``serve_loop`` over a pipe
+   (a ``stop`` written while the drag runs), every response ok; timings and
+   each batched run's peak device memory are printed beside the card;
+6. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA card is present or when the
@@ -501,15 +512,19 @@ class ForwardCounter:
         self._handle.remove()
 
 
-def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention"):
+def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", again=(0, 0), steps=0):
     """Launches of the run just made: each GroupNorm-SiLU call launches
-    gn_stats and gn_norm, each attention call ``attn_kernel`` only."""
+    gn_stats and gn_norm, each attention call ``attn_kernel`` only; under
+    remat, each of ``steps`` backward passes also recomputes ``again``
+    (GroupNorm-SiLU, attention) calls. Without remat a backward launches
+    nothing."""
     gn, attn = per_fwd
-    want = {"gn_stats": gn * forwards, "gn_norm": gn * forwards, "attention": 0,
-            "attention_generic": 0}
-    want[attn_kernel] = attn * forwards
+    want = {"gn_stats": gn * forwards + again[0] * steps, "gn_norm": gn * forwards + again[0] * steps,
+            "attention": 0, "attention_generic": 0}
+    want[attn_kernel] = attn * forwards + again[1] * steps
     got = dict(hk.LAUNCHES)
-    say(f"  launches in {phase}: {got} for {forwards} UNet forwards (want {want})")
+    extra = f", of which {again[0] * steps}/{again[0] * steps}/{again[1] * steps} recomputed" if steps else ""
+    say(f"  launches in {phase}: {got} for {forwards} UNet forwards{extra} (want {want})")
     if forwards <= 0 or got != want:
         fail(f"{phase}: launch counts {got} are not {want}")
     for k, v in got.items():
@@ -597,21 +612,25 @@ def fmt_walls(walls) -> str:
     return json.dumps({k: round(v, 3) if isinstance(v, float) else v for k, v in walls.items()})
 
 
-def counted(hk, counter, per_fwd, totals, phase, fn, forwards):
+def counted(hk, counter, per_fwd, totals, phase, fn, forwards, **recompute):
     """Run ``fn`` with the launch counters and the forward counter set to 0
     just before and read just after: ``forwards`` UNet forwards, each
-    launching its calls per forward. Returns (fn's result, wall s)."""
+    launching its calls per forward (plus ``recompute``, as
+    ``check_counts`` takes it). Returns (fn's result, wall s, peak device
+    GiB of the run)."""
     sync()
     hk.reset_launch_counts()
     counter.n = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = fn()
     sync()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
     if counter.n != forwards:
         fail(f"{phase}: {counter.n} UNet forwards, expected {forwards}")
-    check_counts(hk, phase, counter.n, per_fwd, totals)
-    return out, wall
+    check_counts(hk, phase, counter.n, per_fwd, totals, **recompute)
+    return out, wall, peak
 
 
 def check_mesh(phase, mesh, walls=None):
@@ -649,7 +668,7 @@ def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
         if mode == "replay":
             say(f"  DragEngine.latent_inversion of the generated latent ({w_time} steps, "
                 f"inversion_chunk {engine.config.edit.inversion_chunk})")
-            _, wall = counted(hk, counter, per_fwd, totals, "inversion",
+            _, wall, _ = counted(hk, counter, per_fwd, totals, "inversion",
                               lambda: engine.latent_inversion(x0),
                               -(-w_time // engine.config.edit.inversion_chunk))
             ok = (engine.feature_guidance.shape[0] == w_time
@@ -663,7 +682,7 @@ def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
             say(f"  inversion: {out['inversion_s']:.3f} s for {w_time} steps on the card, wall "
                 f"{wall:.1f} s with the mesh")
         say(f"  DragEngine.drag_edit noise_mode={mode!r}, {w_time} guided steps, one handle")
-        mesh, wall = counted(hk, counter, per_fwd, totals, f"drag {mode}", lambda: drag(mode), w_time)
+        mesh, wall, _ = counted(hk, counter, per_fwd, totals, f"drag {mode}", lambda: drag(mode), w_time)
         steps = np.diff(ticks)
         losses = engine.last_drag_losses
         if not (np.isfinite(engine.edited_latent).all() and np.isfinite(losses["motion"]).all()
@@ -686,7 +705,7 @@ def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
         say(f"  DragEngine.fit_real_shape of the first generated mesh ({len(first_mesh.triangles)} "
             f"triangles), fit_steps {fit_steps}, {engine.config.fit.points_size} points, batch "
             f"{engine.config.fit.batch_points} ({run} call)")
-        _, wall = counted(hk, counter, per_fwd, totals, f"fit ({run} call)",
+        _, wall, _ = counted(hk, counter, per_fwd, totals, f"fit ({run} call)",
                           lambda: engine.fit_real_shape(mesh=first_mesh, path=fit_dir, seed=0,
                                                         fit_steps=fit_steps),
                           fit_steps + -(-w_time // engine.config.edit.inversion_chunk))
@@ -734,7 +753,7 @@ def run_cli_edit(hk, counter, per_fwd, totals, preset_name="chairs", num_steps=2
         with contextlib.redirect_stdout(buf):
             return edit_main(argv)
 
-    engine, wall = counted(hk, counter, per_fwd, totals, "cli.edit", run,
+    engine, wall, _ = counted(hk, counter, per_fwd, totals, "cli.edit", run,
                            engine_steps(cfg) + min(edit_steps, cfg.edit.w_time))
     for f in ("original.obj", "edit00.obj", "EditLog"):
         if not os.path.exists(os.path.join(out, f)) or os.path.getsize(os.path.join(out, f)) == 0:
@@ -898,6 +917,277 @@ def ddim_steady_s(engine) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the serving surfaces on the chairs engine
+# ---------------------------------------------------------------------------
+
+
+def rel_l2(a, b) -> float:
+    a, b = torch.as_tensor(a).float().cpu(), torch.as_tensor(b).float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+HANDLE = (np.array([[0.5, 0.0, 0.0]], np.float32), np.array([[0.6, 0.0, 0.0]], np.float32))  # source, target
+
+
+def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict:
+    """The serving surfaces at chairs width: the direct fit, morphing
+    (engine and ``cli.morph``), ``cli.batch_edit`` and the batched drag
+    (without and with remat, held to single-shape drags), the batched fit,
+    and a scripted ``cli.serve`` session over a pipe."""
+    from ishapediting_tpu_torch.cli.batch_edit import main as batch_main
+    from ishapediting_tpu_torch.cli.morph import main as morph_main
+    from ishapediting_tpu_torch.edit.batch import drag_edit_batched, fit_real_shapes_batched
+    from ishapediting_tpu_torch.models.unet import kernel_calls_recomputed
+
+    cfg = engine.config
+    steps = engine.sched.num_timesteps
+    w_time = cfg.edit.w_time
+    out = {}
+
+    # -- the direct fit (decoder only: no UNet forward, no launch) ----------
+    fit_dir = os.path.join(WORK, "fit_direct")
+    shutil.rmtree(fit_dir, ignore_errors=True)
+    say(f"  DragEngine.fit_real_shape_direct of the first generated mesh ({len(first_mesh.triangles)} "
+        f"triangles), published FitConfig: {cfg.fit.opt_epochs} epochs x "
+        f"{cfg.fit.points_size // cfg.fit.batch_points} batches of {cfg.fit.batch_points} points")
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    engine.fit_real_shape_direct(mesh=first_mesh, path=fit_dir, seed=0)
+    wall = time.perf_counter() - t0
+    say(f"  launches in direct fit: {dict(hk.LAUNCHES)} for {counter.n} UNet forwards (want none)")
+    if counter.n or any(hk.LAUNCHES.values()):
+        fail("direct fit: the decoder-only fit ran the UNet or launched a kernel")
+    losses, walls = engine.last_fit_losses, engine.last_phase_walls
+    tri = np.load(os.path.join(fit_dir, "tri_feat_opt.npy"))
+    # random decoder weights may put the fitted field on one side of the
+    # iso level: the mesh may be empty, the file must be there
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] and np.isfinite(tri).all()
+            and tri.shape == (1, cfg.latent_shape[2]) + cfg.latent_shape[:2]
+            and os.path.exists(os.path.join(fit_dir, "mesh_opt.obj"))):
+        fail(f"direct fit: loss {losses[0]} -> {losses[-1]} did not fall, or outputs not as expected")
+    shutil.rmtree(fit_dir)
+    out["fit_direct"] = dict(walls, loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                             s_per_step=walls["opt_s"] / walls["opt_steps"])
+    say(f"  ({card}) direct fit: {walls['opt_s'] / walls['opt_steps']:.4f} s/step over "
+        f"{walls['opt_steps']} Adam steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, total {wall:.1f} s "
+        f"(points {walls['points_s']:.2f} s, mesh {walls['mesh_s']:.2f} s, "
+        f"{engine.last_mesh_walls['n_verts']} vertices)")
+
+    # -- morph on the engine, then cli.morph --------------------------------
+    morph_fwd = 2 * steps + (steps - 1) + steps  # two samples, encode, decode
+
+    def morph():
+        a, b = engine.sample_latent(seed=1), engine.sample_latent(seed=2)
+        return engine.morph(a, b, n=3)
+
+    say("  DragEngine.morph of two sample_latent()s, 3 frames (encode batch 2, decode batch 3)")
+    frames, wall, peak = counted(hk, counter, per_fwd, totals, "morph", morph, morph_fwd)
+    walls = engine.last_phase_walls
+    if frames.shape != (3,) + cfg.latent_shape or not np.isfinite(frames).all():
+        fail("morph: frames not finite or of the wrong shape")
+    out["morph"] = dict(walls, wall_s=wall, peak_gib=peak)
+    say(f"  ({card}) morph: encode {walls['encode_s']:.3f} s ({steps - 1} steps, batch 2), decode "
+        f"{walls['decode_s'] / 3:.3f} s per frame ({walls['decode_s']:.3f} s for 3 frames, {steps} steps), "
+        f"wall {wall:.1f} s with both samples, peak {peak:.2f} GiB")
+    mout = os.path.join(WORK, "cli_morph")
+    shutil.rmtree(mout, ignore_errors=True)
+    argv = ["--random_init", "--preset", "chairs", "--num_steps", str(steps), "--seed_a", "1", "--seed_b",
+            "2", "--frames", "2", "--smooth", "0", "--out", mout, "--device", "cuda"]
+    say(f"  python -m ishapediting_tpu_torch.cli.morph {' '.join(argv)}")
+    buf = io.StringIO()
+
+    def run_morph():
+        with contextlib.redirect_stdout(buf):
+            return morph_main(argv)
+
+    (_, lat), wall, _ = counted(hk, counter, per_fwd, totals, "cli.morph", run_morph, morph_fwd)
+    if lat.shape != (2,) + cfg.latent_shape or not all(
+            os.path.getsize(os.path.join(mout, f"frame_{k:02d}.obj")) > 0 for k in range(2)):
+        fail("cli.morph: latents or frame OBJs not as expected")
+    shutil.rmtree(mout)
+    out["cli_morph_wall_s"] = wall
+    say(f"  cli.morph: {wall:.1f} s (two samples, encode, decode, two 256^3 frame meshes)")
+
+    # -- cli.batch_edit, then the batched drag on its records ---------------
+    bout = os.path.join(WORK, "batch_edit")
+    shutil.rmtree(bout, ignore_errors=True)
+    argv = ["--random_init", "--preset", "chairs", "--num_steps", str(steps), "--w_time", str(w_time),
+            "--latent_seed", "0", "--latent_seed", "1", "--source", *map(str, HANDLE[0][0]),
+            "--target", *map(str, HANDLE[1][0]), "--out", bout, "--device", "cuda"]
+    say(f"  python -m ishapediting_tpu_torch.cli.batch_edit {' '.join(argv)}")
+    buf = io.StringIO()
+
+    def run_batch():
+        with contextlib.redirect_stdout(buf):
+            return batch_main(argv)
+
+    chunk = 2  # invert_batched's default: 2 steps per forward
+    res, wall, peak = counted(hk, counter, per_fwd, totals, "cli.batch_edit", run_batch,
+                              steps + -(-w_time // chunk) + w_time)
+    for i in (1, 2):
+        for f in (f"original{i:02d}.obj", f"edit{i:02d}.obj"):
+            if os.path.getsize(os.path.join(bout, f)) == 0:
+                fail(f"cli.batch_edit: {f} empty")
+    if not bool(res["edited"].isfinite().all()) or res["noise_mode"] != "replay":
+        fail("cli.batch_edit: edited latents not finite")
+    shutil.rmtree(bout)
+    bw = res["walls"]
+    out["cli_batch_edit"] = dict(bw, wall_s=wall, peak_gib=peak)
+    say(f"  ({card}) cli.batch_edit, N=2: sampling {bw['latents_s']:.3f} s, inversion "
+        f"{bw['inversion_s']:.3f} s, replay drag {bw['drag_s'] / w_time:.4f} s/step (first batched "
+        f"drag of the process: cuDNN times the batch-2 backward), four 256^3 meshes {bw['mesh_s']:.1f} s, "
+        f"wall {wall:.1f} s, peak {peak:.2f} GiB")
+
+    beng, inv, problems = res["engine"], res["inversion"], res["problems"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    noises = torch.randn((w_time, 2, 1) + cfg.latent_shape, generator=gen, device="cuda")
+    scale, cof = cfg.edit.grad_scale, cfg.edit.mask_weight
+    again = kernel_calls_recomputed(cfg.unet, cfg.edit.feat_layer)
+    say(f"  remat: each drag step's backward recomputes {again[0]} GroupNorm-SiLU and {again[1]} "
+        f"attention calls (input and middle blocks, output blocks 0..{cfg.edit.feat_layer})")
+    batched = {}
+    for label, remat in (("plain", False), ("remat first", True), ("remat", True)):
+        fn = lambda remat=remat: drag_edit_batched(  # noqa: E731
+            beng.sched, beng.model_fn(feat=True, remat=remat), inv["w"], inv["features"], problems,
+            w_time=w_time, scale=scale, cof=cof, noises=noises)
+        kw = dict(again=again, steps=w_time) if remat else {}
+        edited, wall, peak = counted(hk, counter, per_fwd, totals, f"batched drag ({label})", fn, w_time,
+                                     **kw)
+        batched[label] = edited
+        out[f"batched_drag_{label.replace(' ', '_')}"] = dict(s_per_step=wall / w_time, wall_s=wall,
+                                                               peak_gib=peak)
+        say(f"  ({card}) batched drag N=2 ({label}): {wall / w_time:.4f} s/step over {w_time} steps, "
+            f"peak {peak:.2f} GiB")
+    tol = 2e-2  # bf16 torso: batch 1 and batch 2 take other cuDNN algorithms
+    err_remat = rel_l2(batched["remat"], batched["plain"])
+    err_again = rel_l2(batched["remat first"], batched["remat"])
+    singles = []
+    for i in range(2):
+        beng.w, beng.w0 = inv["w"][i], inv["w"][i]
+        beng.feature_guidance = inv["features"][i]
+        counted(hk, counter, per_fwd, totals, f"single-shape drag {i}", lambda i=i: beng.drag_edit(
+            HANDLE[0], HANDLE[1], scale=scale, cof=cof, noises=[noises[j, i] for j in range(w_time)]),
+            w_time)
+        singles.append(rel_l2(batched["plain"][i], beng.edited_latent))
+    say(f"  batched drag against two single-shape drag_edit runs, same noises: relative L2 "
+        f"{singles[0]:.2e}, {singles[1]:.2e}; remat against plain {err_remat:.2e}, remat twice "
+        f"{err_again:.2e} (tol {tol:g})")
+    if not (max(singles) <= tol and err_remat <= tol and err_again <= tol):
+        fail("the batched drag disagrees with single-shape drags or with itself under remat")
+    out["batched_vs_single_rel_l2"] = singles
+    out["remat_vs_plain_rel_l2"] = err_remat
+
+    sched_fit = beng._fit_schedule(3)
+    meshes = [first_mesh, engine.mesh0]
+    say(f"  fit_real_shapes_batched of two 256^3 meshes ({len(meshes[0].triangles)}, "
+        f"{len(meshes[1].triangles)} triangles), 3 guided steps at batch 2")
+    lat, wall, peak = counted(hk, counter, per_fwd, totals, "batched fit", lambda: fit_real_shapes_batched(
+        sched_fit, beng.model_fn(), beng.decoder, meshes, beng.half_range, beng.middle,
+        beng._generator(0), latent_shape=cfg.latent_shape, fit_cfg=cfg.fit), 3)
+    if lat.shape != (2,) + cfg.latent_shape or not bool(lat.isfinite().all()):
+        fail("batched fit: latents not finite or of the wrong shape")
+    out["batched_fit"] = dict(wall_s=wall, peak_gib=peak)
+    say(f"  ({card}) batched fit N=2: {wall:.1f} s with host point sampling, peak {peak:.2f} GiB")
+    del res, beng, inv, batched
+
+    out["serve"] = serve_session(hk, counter, per_fwd, totals, cfg, card)
+    return out
+
+
+def serve_session(hk, counter, per_fwd, totals, cfg, card) -> dict:
+    """``cli.serve``'s ``serve_loop`` in a thread, fed through a pipe one
+    request at a time; the ``stop`` line is written after the drag's first
+    progress event. Every response must be ok."""
+    import queue
+
+    from ishapediting_tpu_torch.cli.serve import EditServer, serve_loop
+
+    steps = engine_steps(cfg)
+    sdir = os.path.join(WORK, "serve")
+    shutil.rmtree(sdir, ignore_errors=True)
+    r_fd, w_fd = os.pipe()
+    instream, writer = os.fdopen(r_fd, "r"), os.fdopen(w_fd, "w")
+    msgs: "queue.Queue" = queue.Queue()
+
+    class Out:
+        def write(self, text):
+            for line in text.splitlines():
+                if line.strip():
+                    msgs.put(json.loads(line))
+
+        def flush(self):
+            pass
+
+    errors = []
+    th = threading.Thread(target=lambda: _capture(
+        lambda: serve_loop(instream, Out(), EditServer(device="cuda")), errors), daemon=True)
+    reqs = [
+        {"cmd": "init_random", "preset": "chairs", "num_steps": steps, "w_time": cfg.edit.w_time,
+         "feat_layer": cfg.edit.feat_layer, "seed": 0},
+        {"cmd": "sample", "seed": 0},
+        {"cmd": "drag", "sources": HANDLE[0].tolist(), "targets": HANDLE[1].tolist(), "chunk": 2},
+        {"cmd": "save_mesh", "path": os.path.join(sdir, "edit.obj")},
+        {"cmd": "metrics", "points": 20000},
+        {"cmd": "render", "path": os.path.join(sdir, "shot.png"), "size": 256},
+        {"cmd": "edit_log", "path": os.path.join(sdir, "EditLog")},
+        {"cmd": "generate", "num_samples": 2, "batch_size": 2, "sampler": "ddim", "num_steps": 10,
+         "decode": True, "smooth": 0},
+        {"cmd": "morph", "seed_a": 1, "seed_b": 2, "frames": 2},
+        {"cmd": "status"},
+        {"cmd": "quit"},
+    ]
+    forwards = steps + cfg.edit.w_time + 10 + (2 * steps + (steps - 1) + steps)
+    say(f"  cli.serve session over a pipe: {', '.join(r['cmd'] for r in reqs)} (a stop line written "
+        f"while the drag runs)")
+
+    def session():
+        walls, responses = {}, []
+        th.start()
+        for req in reqs:
+            t0 = time.perf_counter()
+            writer.write(json.dumps(req) + "\n")
+            writer.flush()
+            stop_sent = False
+            while True:
+                try:
+                    msg = msgs.get(timeout=600)
+                except queue.Empty:
+                    fail(f"serve: no answer to {req['cmd']} ({errors})")
+                if "event" in msg:
+                    if req["cmd"] == "drag" and msg["event"] == "progress" and not stop_sent:
+                        writer.write(json.dumps({"cmd": "stop"}) + "\n")
+                        writer.flush()
+                        stop_sent = True
+                    continue
+                responses.append(msg)
+                if msg.get("cmd") == req["cmd"]:
+                    break
+            walls[req["cmd"]] = time.perf_counter() - t0
+        th.join(timeout=60)
+        writer.close()
+        instream.close()
+        bad = [r for r in responses if not r.get("ok")]
+        if errors or bad or th.is_alive():
+            fail(f"serve: failed responses {bad} {errors}")
+        return walls, responses
+
+    (walls, responses), total, _ = counted(hk, counter, per_fwd, totals, "cli.serve session", session,
+                                           forwards)
+    drag = next(r for r in responses if r.get("cmd") == "drag")
+    if not drag["stopped_early"] or not any(r.get("cmd") == "stop" for r in responses):
+        fail("serve: the stop line did not stop the drag")
+    if os.path.getsize(os.path.join(sdir, "shot.png")) == 0:
+        fail("serve: empty render")
+    shutil.rmtree(sdir)
+    say(f"  ({card}) cli.serve session, wall per request: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()) + f"; total {total:.1f} s; drag stopped "
+        f"early, motion loss {drag['motion_loss_first']:.4g} -> {drag['motion_loss_last']:.4g}")
+    return dict(walls, total_s=total)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -965,10 +1255,14 @@ def main() -> None:
         chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
     engine, lat, gen_wall = run_engine(hk, counter, per_fwd, totals, chairs,
                                        "preset('chairs', 20), w_time=10, feat_layer=8")
+    first_mesh = engine.mesh0
     edits = chairs_edit_runs(hk, counter, per_fwd, totals, engine, lat)
     say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
         f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
     edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals)
+    say("[5] serving surfaces on the chairs engine (direct fit, morph, cli.morph, cli.batch_edit, "
+        "batched drag with and without remat, batched fit, cli.serve)")
+    serving = serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card)
     counter.close()
     edits["march"] = march_compare(engine, lat)
     per_forward = forward_accounting(engine)
@@ -994,6 +1288,7 @@ def main() -> None:
             backward_rel_err=r["backward_rel_err"],
         ))
     say("edit path: " + json.dumps({"gate": gate, **edits}, default=float))
+    say("serving: " + json.dumps(serving, default=float))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -96,7 +96,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", type=str, default="edited")
     p.add_argument("--render", action="store_true",
-                   help="before/after PNG renders (not in the port yet: raises)")
+                   help="also save before/after PNG renders (headless)")
     p.add_argument("--feat_dtype", type=str, default=None, choices=["float32", "bfloat16"],
                    help="guidance-feature cache dtype; default: keep the config's")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -105,8 +105,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.render:
-        raise SystemExit("--render needs geometry/render.py, which the port does not have yet")
     # validate the edit spec before any model work
     if args.edit_log:
         edits = parse_edit_log(args.edit_log)
@@ -154,6 +152,10 @@ def main(argv=None):
         engine.update_latent_params(seed=seed)
 
     engine.mesh0.write(os.path.join(args.out, "original.obj"))
+    if args.render:
+        from ishapediting_tpu_torch.geometry.render import render_mesh
+
+        render_mesh(engine.mesh0, save_path=os.path.join(args.out, "original.png"))
     for edit_id, spec in edits.items():
         print(f"edit {edit_id}: {len(spec['sources'])} handle(s), "
               f"scale={spec['scale']}, lambda={spec['lam']}")
@@ -168,6 +170,10 @@ def main(argv=None):
                   f"mask loss {summary['mask_last']:.4f} (per-step guidance diagnostics)")
         out_path = os.path.join(args.out, f"edit{edit_id}.obj")
         mesh.write(out_path)
+        if args.render:
+            from ishapediting_tpu_torch.geometry.render import render_mesh
+
+            render_mesh(mesh, save_path=os.path.join(args.out, f"edit{edit_id}.png"))
         write_edit_log(os.path.join(args.out, "EditLog"), edit_id, spec["sources"],
                        spec["targets"], spec["scale"], spec["lam"])
         engine.reset_params()

@@ -263,6 +263,25 @@ def ddim_sample(
     }
 
 
+def ddim_reverse_sample(
+    sched: Schedule,
+    model_fn: ModelFn,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    clip_denoised: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Deterministic DDIM reverse-ODE step x_t -> x_{t+1}
+    (reference: gaussian_diffusion.py:718-761)."""
+    out = p_mean_variance(sched, model_fn, x, t, clip_denoised=clip_denoised)
+    sched = sched.to(x.device)
+    nd = x.ndim
+    eps = predict_eps_from_xstart(sched, x.float(), t, out.pred_xstart)
+    alpha_bar_next = extract(sched.alphas_cumprod_next, t, nd)
+    mean_pred = out.pred_xstart * torch.sqrt(alpha_bar_next) + torch.sqrt(1 - alpha_bar_next) * eps
+    return {"sample": mean_pred, "pred_xstart": out.pred_xstart}
+
+
 # ---------------------------------------------------------------------------
 # Trajectory loops
 # ---------------------------------------------------------------------------
@@ -291,6 +310,24 @@ def p_sample_loop(
             sched, model_fn, x, _tb(x, t), generator,
             noise=_step_noise(noises, i, x), clip_denoised=clip_denoised,
         )["sample"]
+    return x
+
+
+def ddim_reverse_sample_loop(
+    sched: Schedule,
+    model_fn: ModelFn,
+    x0: torch.Tensor,
+    *,
+    clip_denoised: bool = True,
+) -> torch.Tensor:
+    """Deterministic DDIM encode x_0 -> x_T: ``ddim_reverse_sample`` at
+    t = 0 .. T-2. Step t lifts the noise level abar[t] -> abar[t+1], ending
+    at abar[T-1], the level ``ddim_sample_loop``'s first step consumes
+    (t = T-1 would lift to ``alphas_cumprod_next[T-1] == 0`` and zero the
+    signal term)."""
+    x = x0.float()
+    for t in range(sched.num_timesteps - 1):
+        x = ddim_reverse_sample(sched, model_fn, x, _tb(x, t), clip_denoised=clip_denoised)["sample"]
     return x
 
 
@@ -477,6 +514,81 @@ def ddpm_inversion(
         "variance_noise": variance_noise.flip(0),
         "sample": x_inter[0],
     }
+
+
+def sample_partial(
+    sched: Schedule,
+    model_fn: ModelFn,
+    x: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    t_start: int,
+    t_stop: int = 0,
+    use_ddim: bool = False,
+    eta: float = 0.0,
+    clip_denoised: bool = True,
+    capture_features: bool = False,
+    feat_postprocess: Callable[[torch.Tensor], torch.Tensor] = lambda f: f,
+    noises: Optional[Sequence[torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Partial trajectory t_start-1 .. t_stop (DDIM, or the guidance step
+    without guidance), optionally capturing every step's post-processed
+    feature (the reference's ``synthesize_latent``, drag_utils.py:61-131).
+    ``noises[i]`` replaces the draw of loop step i. Returns dict(sample,
+    pred_xstart [steps, ...], features [steps, ...] if captured)."""
+    x = x.float()
+    feats, pred_x0 = [], []
+    for i, t in enumerate(range(t_start - 1, t_stop - 1, -1)):
+        kw = dict(noise=_step_noise(noises, i, x), clip_denoised=clip_denoised)
+        if use_ddim:
+            out = ddim_sample(sched, model_fn, x, _tb(x, t), generator, eta=eta, **kw)
+        else:
+            out = p_sample_guidance(sched, model_fn, x, _tb(x, t), generator, **kw)
+        if capture_features:
+            feats.append(feat_postprocess(out["inter_feat"]))
+        pred_x0.append(out["pred_xstart"])
+        x = out["sample"]
+    result = {"sample": x, "pred_xstart": torch.stack(pred_x0)}
+    if capture_features:
+        result["features"] = torch.stack(feats)
+    return result
+
+
+def p_sample_loop_snapshots(
+    sched: Schedule,
+    model_fn: ModelFn,
+    x_T: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    *,
+    snapshot_steps: Sequence[int],
+    use_ddim: bool = False,
+    clip_denoised: bool = True,
+    noises: Optional[Sequence[torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A whole sampling trajectory that also keeps the post-step sample at
+    the given loop indices (0 = the first step from pure noise; the
+    reference's ``save_intermediate``, gaussian_diffusion.py:545-601,
+    image_sample.py:70-102). DDIM runs at eta 0. Returns dict(sample,
+    snapshots [K, B, ...]) in the order of ``snapshot_steps``."""
+    snapshot_steps = tuple(int(s) for s in snapshot_steps)
+    num = sched.num_timesteps
+    if not all(0 <= s < num for s in snapshot_steps):
+        raise ValueError(f"snapshot_steps must be loop indices in [0, {num}); got {snapshot_steps}")
+    kept = {}
+    x = x_T.float()
+    for i, t in enumerate(range(num - 1, -1, -1)):
+        kw = dict(noise=_step_noise(noises, i, x), clip_denoised=clip_denoised)
+        if use_ddim:
+            x = ddim_sample(sched, model_fn, x, _tb(x, t), generator, **kw)["sample"]
+        else:
+            x = p_sample(sched, model_fn, x, _tb(x, t), generator, **kw)["sample"]
+        if i in snapshot_steps:
+            kept[i] = x
+    if snapshot_steps:
+        snaps = torch.stack([kept[s] for s in snapshot_steps])
+    else:
+        snaps = x.new_zeros((0,) + x.shape)
+    return {"sample": x, "snapshots": snaps}
 
 
 def guided_sample_loop(

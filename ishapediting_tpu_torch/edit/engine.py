@@ -9,6 +9,7 @@ per-session latent state::
     engine.update_latent_params(seed=7)               # generate + cache
     engine.drag_edit(sources, targets, scale=1200, cof=0.4)
     engine.fit_real_shape(mesh_path="chair.obj", path=workdir)  # + inversion
+    frames = engine.morph(engine.sample_latent(1), engine.sample_latent(2), n=5)
 
 Randomness comes from ``torch.Generator``s seeded with the caller's seed, so
 a seed gives another shape than in the JAX package; every stochastic entry
@@ -41,6 +42,7 @@ from ishapediting_tpu_torch.config import PipelineConfig
 from ishapediting_tpu_torch.core.diffusion import (
     ddpm_inversion,
     p_sample_guidance,
+    p_sample_loop,
     sample_loop_with_features,
     xstart_model_adapter,
 )
@@ -53,7 +55,8 @@ from ishapediting_tpu_torch.core.schedule import (
 )
 from ishapediting_tpu_torch.edit.drag import build_drag_problem, make_drag_step
 from ishapediting_tpu_torch.edit.features import regroup_features
-from ishapediting_tpu_torch.edit.fit import fit_guided, latent_to_planes, sample_training_points
+from ishapediting_tpu_torch.edit.fit import fit_direct, fit_guided, latent_to_planes, sample_training_points
+from ishapediting_tpu_torch.edit.morph import morph_latents
 from ishapediting_tpu_torch.geometry.marching import grid_to_mesh
 from ishapediting_tpu_torch.geometry.mesh import TriMesh
 from ishapediting_tpu_torch.io.model_dir import TriplaneStats, discover_model_dir, load_stats
@@ -81,10 +84,15 @@ class DragEngine:
         stats: Optional[TriplaneStats] = None,
         seed: int = 0,
         device=None,
+        remat: bool = False,
     ):
         """Random weights from ``seed`` where ``unet``/``decoder`` are not
-        given. ``device`` defaults to ``cuda`` and raises without one."""
+        given. ``device`` defaults to ``cuda`` and raises without one.
+        ``remat`` recomputes the UNet's blocks in the backward of the guided
+        paths (drag and fit steps): off by default, as in the JAX package,
+        since batch 1 fits the card; on for memory-bound batched runs."""
         self.device = resolve_device(device)
+        self.remat = remat
         set_cuda_flags()
         self.config = config or PipelineConfig()
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -125,6 +133,7 @@ class DragEngine:
         self.edited_latent: Optional[np.ndarray] = None  # last drag result
         # per-step guidance losses of the last drag_edit ({"motion", "mask"})
         self.last_drag_losses: Optional[Dict[str, np.ndarray]] = None
+        self.last_fit_losses: Optional[np.ndarray] = None  # per step of the last direct fit
         # wall-clock attribution: latent_inversion / drag_edit / fit_real_shape
         # fill last_phase_walls (with a "path" tag), every get_mesh
         # last_mesh_walls
@@ -176,14 +185,15 @@ class DragEngine:
     # Model function
     # ------------------------------------------------------------------
 
-    def model_fn(self, feat: bool = False):
+    def model_fn(self, feat: bool = False, remat: bool = False):
         """``fn(x, t_orig) -> (out, feat or None)`` over the engine's UNet;
-        ``feat=True`` also returns the tapped guidance feature map."""
+        ``feat=True`` also returns the tapped guidance feature map, ``remat``
+        recomputes the UNet's blocks in a backward pass."""
         feat_layer = self.config.edit.feat_layer if feat else -1
         unet = self.unet
 
         def fn(x, t_orig):
-            return unet(x, t_orig, feat_layer=feat_layer)
+            return unet(x, t_orig, feat_layer=feat_layer, remat=remat)
 
         if self._base_sched is not None:
             return xstart_model_adapter(self._base_sched, fn)
@@ -429,7 +439,8 @@ class DragEngine:
             feat_width=self.feature_guidance.shape[-2], device=self.device,
         )
         step = make_drag_step(
-            sched_edit, self.model_fn(feat=True), problem, scale=float(scale), cof=float(cof),
+            sched_edit, self.model_fn(feat=True, remat=self.remat), problem, scale=float(scale),
+            cof=float(cof),
             loss_type=edit_cfg.loss_type, clip_denoised=self.config.diffusion.clip_denoised,
         )
         self.train_flag = True
@@ -538,7 +549,7 @@ class DragEngine:
         fcfg = self.config.fit
         t0 = time.perf_counter()
         latent = fit_guided(
-            sched_fit, self.model_fn(feat=False), self.decoder,
+            sched_fit, self.model_fn(feat=False, remat=self.remat), self.decoder,
             torch.as_tensor(points, device=self.device), torch.as_tensor(occ, device=self.device),
             self.half_range, self.middle, self._generator(seed),
             latent_shape=self.config.latent_shape, batch_points=fcfg.batch_points,
@@ -563,6 +574,58 @@ class DragEngine:
             "total_s": time.perf_counter() - t_all,
         }
         self.mesh0.write(os.path.join(path, "mesh_recon.obj"))
+
+    def fit_real_shape_direct(
+        self,
+        mesh: Optional[TriMesh] = None,
+        mesh_path: Optional[str] = None,
+        center_mesh: bool = True,
+        path: str = "./",
+        seed: int = 0,
+        init_noise=None,
+        draws: Optional[Sequence] = None,
+    ) -> np.ndarray:
+        """Direct-Adam triplane fit (reference train_triplane_opt,
+        drag_utils.py:473-550): writes ``<path>/tri_feat_opt.npy`` (NCHW)
+        and ``<path>/mesh_opt.obj``; returns the normalized latent
+        [1, H, W, C]. Draws come from a generator seeded with ``seed``, or
+        ``init_noise``/``draws`` (``edit.fit.fit_direct``). The per-step
+        losses land in ``last_fit_losses``."""
+        if mesh is None:
+            if mesh_path is None:
+                raise ValueError("need mesh or mesh_path")
+            mesh = TriMesh.read(mesh_path)
+        if center_mesh:
+            mesh = mesh.copy().normalize_unit_cube()
+        t_all = time.perf_counter()
+        points, occ = sample_training_points(mesh, self.config.fit, seed=seed)
+        points_s = time.perf_counter() - t_all
+        losses = []
+        t0 = time.perf_counter()
+        latent = fit_direct(
+            self.decoder, torch.as_tensor(points, device=self.device),
+            torch.as_tensor(occ, device=self.device), self.half_range, self.middle,
+            self.stats.means, self.stats.stds, self._generator(seed), self.config.fit,
+            latent_shape=self.config.latent_shape, init_noise=init_noise, draws=draws,
+            losses=losses,
+        )
+        self._sync()
+        opt_s = time.perf_counter() - t0
+        self.last_fit_losses = torch.stack(losses).cpu().numpy()
+        latent = latent.cpu().numpy()
+        os.makedirs(path, exist_ok=True)
+        np.save(os.path.join(path, "tri_feat_opt.npy"), latent_to_nchw(latent))
+        t0 = time.perf_counter()
+        self.get_mesh(latent).write(os.path.join(path, "mesh_opt.obj"))
+        self.last_phase_walls = {
+            "path": "fit_direct",
+            "opt_steps": len(losses),
+            "points_s": points_s,
+            "opt_s": opt_s,
+            "mesh_s": time.perf_counter() - t0,
+            "total_s": time.perf_counter() - t_all,
+        }
+        return latent
 
     @torch.no_grad()
     def latent_inversion(self, latent, seed: int = 0, noises: Optional[Sequence] = None) -> None:
@@ -600,6 +663,45 @@ class DragEngine:
             "mesh_s": time.perf_counter() - t0,
             "total_s": time.perf_counter() - t_all,
         }
+
+    @torch.no_grad()
+    def sample_latent(self, seed: int = 0, latent=None, noises: Optional[Sequence] = None) -> np.ndarray:
+        """Plain ancestral sample -> normalized latent [1, H, W, C], without
+        the guidance-feature cache of ``update_latent_params`` (for callers
+        that do not edit, such as morphing). x_T comes from a generator
+        seeded with ``seed`` (or ``latent``), the step noise from one seeded
+        with ``seed + 1`` (or ``noises``)."""
+        shape = (1,) + self.config.latent_shape
+        if latent is None:
+            x_T = torch.randn(shape, generator=self._generator(seed), device=self.device)
+        else:
+            x_T = torch.as_tensor(latent, dtype=torch.float32, device=self.device).reshape(shape)
+        x = p_sample_loop(self.sched, self.model_fn(), x_T, self._generator(seed + 1),
+                          noises=noises, clip_denoised=self.config.diffusion.clip_denoised)
+        return x.cpu().numpy()
+
+    @torch.no_grad()
+    def morph(self, latent_a, latent_b, n: int = 5) -> np.ndarray:
+        """Latent-space morph between two shapes: DDIM-encode both
+        normalized latents as one batch, slerp at ``n`` uniform mix weights,
+        decode every frame as one batch-``n`` DDIM walk (``edit/morph.py``).
+        Returns normalized latents [n, H, W, C]; mesh a frame with
+        ``get_mesh(latents[k][None])``."""
+        if n < 2:
+            raise ValueError(f"need at least 2 morph frames, got {n}")
+        shape = self.config.latent_shape
+        a = torch.as_tensor(latent_a, dtype=torch.float32, device=self.device).reshape(shape)
+        b = torch.as_tensor(latent_b, dtype=torch.float32, device=self.device).reshape(shape)
+        alphas = [float(x) for x in np.linspace(0.0, 1.0, n)]
+        t0 = time.perf_counter()
+        walls: Dict[str, float] = {}
+        frames = morph_latents(self.sched, self.model_fn(), a, b, alphas,
+                               clip_denoised=self.config.diffusion.clip_denoised,
+                               walls=walls)
+        out = frames.cpu().numpy()
+        self.last_phase_walls = {"path": "morph", "frames": n, **walls,
+                                 "total_s": time.perf_counter() - t0}
+        return out
 
     # ------------------------------------------------------------------
     # Session state (reference: drag_utils.py:568-583)

@@ -8,13 +8,17 @@ differentiated back through the decoder and the UNet to the latent and
 applied as guidance. Each step draws a fresh ``batch_points`` batch from the
 labeled point pool. Occupancy labeling is host-side (geometry/occupancy).
 
+``fit_direct`` is the direct alternative (reference: drag_utils.py:473-550):
+Adam on the physical planes against BCE, a smoothness term, TV and L2; it
+runs the decoder only.
+
 Channel groups of a latent are contiguous: plane p <- channels
 [C/3*p, C/3*(p+1)) (reference: drag_utils.py:295,449-450).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +28,7 @@ from ishapediting_tpu_torch.core.diffusion import guided_sample_loop, p_sample_g
 from ishapediting_tpu_torch.core.schedule import Schedule
 from ishapediting_tpu_torch.geometry.mesh import TriMesh
 from ishapediting_tpu_torch.geometry.occupancy import points_occupancy
-from ishapediting_tpu_torch.ops.triplane import TriplaneDecoder, decode_points
+from ishapediting_tpu_torch.ops.triplane import TriplaneDecoder, decode_points, l2_reg, tv_reg
 
 
 def latents_to_planes(latents: torch.Tensor, half_range: torch.Tensor, middle: torch.Tensor) -> torch.Tensor:
@@ -112,3 +116,73 @@ def fit_guided(
         return scale * grad, out["sample"].detach(), out["variance"].detach()
 
     return guided_sample_loop(sched, x_T, guidance_fn=guidance)
+
+
+def fit_direct(
+    decoder: TriplaneDecoder,
+    points: torch.Tensor,  # [P, 3]
+    occupancies: torch.Tensor,  # [P]
+    half_range: torch.Tensor,
+    middle: torch.Tensor,
+    means: Optional[np.ndarray],
+    stds: Optional[np.ndarray],
+    generator: Optional[torch.Generator],
+    cfg: FitConfig,
+    *,
+    latent_shape: Tuple[int, int, int],
+    init_noise: Optional[torch.Tensor] = None,
+    draws: Optional[Sequence[Tuple]] = None,
+    losses: Optional[List[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Direct Adam fit of the physical planes (reference:
+    drag_utils.py:473-550): ``opt_epochs * (P // batch_points)`` steps of
+    ``torch.optim.Adam`` (lr ``opt_lr``, betas 0.9/0.999, the update rule of
+    ``optax.adam``) on BCE + ``opt_smooth_weight`` * the squared logit change
+    between random points and their 1e-2-jittered copies + ``opt_l2_weight``
+    * ``l2_reg`` + ``opt_tv_weight`` * ``tv_reg``. The planes start at the
+    category's ``means + stds * randn``, or ``randn * 1e-3`` without them.
+
+    Draws come from ``generator``: the [1, H, W, C] init normals, then per
+    step the point indices, the uniform coordinates and the jitter normals.
+    ``init_noise`` and ``draws[i] = (indices [batch], uniform [batch, 3],
+    normal [batch, 3])`` replace them, to replay another implementation's
+    run. Each step's loss (before its update) is appended to ``losses``.
+    Returns the normalized latent [1, H, W, C]."""
+    h, w, c = latent_shape
+    dev = points.device
+    if init_noise is None:
+        init_noise = torch.randn((1, h, w, c), generator=generator, device=dev)
+    init = torch.as_tensor(init_noise, dtype=torch.float32, device=dev)
+    if means is not None and stds is not None:
+        init = init * torch.as_tensor(stds, device=dev) + torch.as_tensor(means, device=dev)
+    else:
+        init = init * 0.001  # the decoder-training plane init (axisnetworks.py:523)
+    planes = init[0].reshape(h, w, 3, c // 3).permute(2, 0, 1, 3).contiguous().requires_grad_(True)
+    opt = torch.optim.Adam([planes], lr=cfg.opt_lr, betas=(0.9, 0.999), eps=1e-8)
+    p_total = points.shape[0]
+    total_steps = cfg.opt_epochs * max(1, p_total // cfg.batch_points)
+    shape = (cfg.batch_points, 3)
+    for i in range(total_steps):
+        if draws is None:
+            idx = torch.randint(0, p_total, (cfg.batch_points,), generator=generator, device=dev)
+            rand_coord = torch.rand(shape, generator=generator, device=dev) * 2.0 - 1.0
+            jitter = torch.randn(shape, generator=generator, device=dev)
+        else:
+            idx, rand_coord, jitter = (torch.as_tensor(a, device=dev) for a in draws[i])
+            idx, rand_coord, jitter = idx.long(), rand_coord.float(), jitter.float()
+        coords = points[idx]
+        labels = occupancies[idx][:, None]
+        with torch.enable_grad():
+            loss = bce_with_logits(decode_points(decoder, planes, coords), labels)
+            pred_a = decode_points(decoder, planes, rand_coord)
+            pred_b = decode_points(decoder, planes, rand_coord + 1e-2 * jitter)
+            loss = loss + cfg.opt_smooth_weight * (pred_a - pred_b).square().mean()
+            loss = loss + cfg.opt_l2_weight * l2_reg(planes)
+            loss = loss + cfg.opt_tv_weight * tv_reg(planes)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        opt.step()
+        if losses is not None:
+            losses.append(loss.detach())
+    tri = planes.detach().permute(1, 2, 0, 3).reshape(1, h, w, c)
+    return (tri - middle) / half_range

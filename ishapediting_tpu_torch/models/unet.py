@@ -13,6 +13,12 @@ time embedding and the output head stay fp32; the tapped feature
 channels_last memory of the NCHW tensors cuDNN convolves, which the Hopper
 kernels read with no copy. The module's forward is the inference forward
 (no dropout); parameters are held in fp32.
+
+``remat=True`` recomputes each input, middle and output block in the
+backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
+package's ``jax.checkpoint`` does: the forward keeps only the blocks'
+inputs, and the backward runs each block it reaches a second time, Hopper
+kernels included.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ishapediting_tpu_torch.config import UNetConfig
 from ishapediting_tpu_torch.ops.attention import qkv_attention
@@ -143,15 +150,25 @@ def feat_layer_shape(cfg: UNetConfig, feat_layer: int) -> Tuple[int, int]:
     raise ValueError(f"feat_layer {feat_layer} out of range")
 
 
-def kernel_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
-    """(GroupNorm-SiLU calls, attention calls) of one forward: two per
-    ResBlock plus the output head, and one per attention block."""
+def kernel_calls_recomputed(cfg: UNetConfig, feat_layer: int, head: bool = False) -> Tuple[int, int]:
+    """(GroupNorm-SiLU calls, attention calls) that a ``remat`` backward
+    recomputes when the loss reaches the output only through the feature tap
+    at ``feat_layer`` (a drag step): every input and middle block and output
+    blocks 0..feat_layer run again. ``head=True``: the loss reaches the
+    output (a fit step), so every block runs again (the output head is not
+    checkpointed). Two calls per ResBlock, one per attention block."""
     layout = build_layout(cfg)
+    last = len(layout.output_blocks) if head else feat_layer + 1
     layers = [l for b in layout.input_blocks for l in b] + list(layout.middle_block)
-    layers += [l for b in layout.output_blocks for l in b]
-    n_res = sum(l.kind == "res" for l in layers)
-    n_attn = sum(l.kind == "attn" for l in layers)
-    return 2 * n_res + 1, n_attn
+    layers += [l for b in layout.output_blocks[:last] for l in b]
+    return 2 * sum(l.kind == "res" for l in layers), sum(l.kind == "attn" for l in layers)
+
+
+def kernel_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
+    """(GroupNorm-SiLU calls, attention calls) of one forward: those of
+    every block, and the output head's GroupNorm-SiLU."""
+    gn, attn = kernel_calls_recomputed(cfg, -1, head=True)
+    return gn + 1, attn
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +332,7 @@ class UNetModel(nn.Module):
         timesteps: torch.Tensor,
         feat_layer: int = -1,
         y: Optional[torch.Tensor] = None,
+        remat: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         cfg = self.config
         if feat_layer >= len(self.output_blocks):
@@ -329,19 +347,27 @@ class UNetModel(nn.Module):
             assert y is not None, "class-conditional model requires y"
             emb = emb + self.label_emb.weight[y]
 
+        def run(block, h, emb, skip=None):
+            if skip is not None:
+                h = torch.cat([h, skip], dim=-1)
+            for mod in block:
+                h = mod(h, emb)
+            return h
+
+        def run_block(block, h, skip=None):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(run, block, h, emb, skip, use_reentrant=False)
+            return run(block, h, emb, skip)
+
         h = x.to(cfg.torch_compute_dtype)
         hs = []
         for block in self.input_blocks:
-            for mod in block:
-                h = mod(h, emb)
+            h = run_block(block, h)
             hs.append(h)
-        for mod in self.middle_block:
-            h = mod(h, emb)
+        h = run_block(self.middle_block, h)
         feat = None
         for i, block in enumerate(self.output_blocks):
-            h = torch.cat([h, hs.pop()], dim=-1)
-            for mod in block:
-                h = mod(h, emb)
+            h = run_block(block, h, hs.pop())
             if i == feat_layer:
                 feat = h.float()
 

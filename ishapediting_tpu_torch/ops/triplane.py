@@ -171,3 +171,20 @@ def decode_grid(
     for i0 in range(0, res, chunk):
         grid[i0 : i0 + chunk] = _grid_rows(dec, pre, i0, chunk, compute_dtype)
     return grid
+
+
+def tv_reg(planes: torch.Tensor) -> torch.Tensor:
+    """Total-variation regularizer (reference: axisnetworks.py:564-569): per
+    plane, the root of the summed squared neighbour differences along each
+    axis, summed."""
+    total = 0.0
+    for axis in (1, 2):
+        d = torch.diff(planes, dim=axis)
+        total = total + torch.sqrt(d.square().sum(dim=(1, 2, 3)))
+    return total.sum()
+
+
+def l2_reg(planes: torch.Tensor) -> torch.Tensor:
+    """L2 regularizer (reference: axisnetworks.py:571-575): the sum over
+    planes of each plane's norm."""
+    return torch.sqrt(planes.square().sum(dim=(1, 2, 3))).sum()

@@ -9,8 +9,16 @@ outputs, the EditLog byte-equal to JAX's ``write_edit_log``).
 Tolerances: points and labels exact; BCE rel 1e-6; the guidance gradient
 1e-4 of its largest magnitude; the fitted latent atol 1e-4 (three guided
 steps at scale 1).
+
+The direct fit (``fit_direct``, ``DragEngine.fit_real_shape_direct``):
+``tv_reg``/``l2_reg`` and their gradients rel 1e-5; the fitted latent atol
+2e-5 against ``optax.adam``'s after 8 Adam steps at lr 1e-3 with JAX's
+draws injected (the two Adams round differently: an update is lr times
+m/(sqrt(v)+eps), so a last-bit difference in a gradient moves an update by
+about 1e-3 of lr per step).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -27,7 +35,11 @@ from ishapediting_tpu.edit import fit as jfit
 from ishapediting_tpu.geometry import occupancy as jocc
 from ishapediting_tpu.geometry.mesh import TriMesh as JTriMesh
 from ishapediting_tpu.models.unet import unet_apply
+from ishapediting_tpu.edit.engine import DragEngine as JDragEngine
+from ishapediting_tpu.config import preset as jpreset
 from ishapediting_tpu.ops.triplane import decode_points as j_decode_points
+from ishapediting_tpu.ops.triplane import l2_reg as j_l2_reg
+from ishapediting_tpu.ops.triplane import tv_reg as j_tv_reg
 from ishapediting_tpu_torch.cli import edit as tcli
 from ishapediting_tpu_torch.config import FitConfig, preset
 from ishapediting_tpu_torch.core import diffusion as tdiff
@@ -37,7 +49,7 @@ from ishapediting_tpu_torch.edit.engine import DragEngine
 from ishapediting_tpu_torch.geometry.marching import grid_to_mesh
 from ishapediting_tpu_torch.geometry.mesh import TriMesh
 from ishapediting_tpu_torch.geometry.occupancy import points_occupancy
-from ishapediting_tpu_torch.ops.triplane import decode_points
+from ishapediting_tpu_torch.ops.triplane import decode_points, l2_reg, tv_reg
 from torch_parity_helpers import decoder_pair, to_torch, unet_pair
 
 torch.set_num_threads(2)
@@ -259,10 +271,22 @@ def test_cli_edit_real_mesh_and_cache(tmp_path, capsys):
     assert os.path.getsize(tmp_path / "o" / "edit00.obj") > 0
 
 
+def test_cli_edit_render(tmp_path):
+    """``--render`` writes before/after PNGs (the JAX CLI's names)."""
+    from PIL import Image
+
+    tcli.main(["--random_init", "--preset", "tiny", "--device", "cpu", "--latent_seed", "3", "--source",
+               "0.2", "0", "0", "--target", "0.4", "0", "0", "--edit_steps", "2", "--render",
+               "--out", str(tmp_path)])
+    for name in ("original.png", "edit00.png"):
+        img = np.asarray(Image.open(tmp_path / name))
+        assert img.shape == (512, 512, 3) and (img != 255).any(), name
+
+
 def test_cli_edit_refusals(tmp_path):
     base = ["--random_init", "--preset", "tiny", "--device", "cpu", "--out", str(tmp_path)]
-    with pytest.raises(SystemExit, match="render"):
-        tcli.main(base + ["--render", "--source", "0", "0", "0", "--target", "0", "0", "0"])
+    with pytest.raises(SystemExit, match="source/--target"):
+        tcli.main(base + ["--render", "--source", "0", "0", "0"])
     with pytest.raises(SystemExit, match="source/--target"):
         tcli.main(base)
     if not torch.cuda.is_available():
@@ -284,3 +308,102 @@ def test_engine_entry_points_take_tensors_and_arrays():
     w = engine.w.clone()
     engine.latent_inversion(torch.from_numpy(a))
     torch.testing.assert_close(engine.w, w, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the direct fit
+# ---------------------------------------------------------------------------
+
+
+def test_tv_and_l2_reg_match_jax():
+    planes = np.random.default_rng(12).normal(size=(3, 8, 9, 4)).astype(np.float32)
+    for tfn, jfn in ((tv_reg, j_tv_reg), (l2_reg, j_l2_reg)):
+        jval, jgrad = jax.value_and_grad(jfn)(jnp.asarray(planes))
+        p = to_torch(planes).requires_grad_(True)
+        val = tfn(p)
+        (grad,) = torch.autograd.grad(val, p)
+        assert float(val.detach()) == pytest.approx(float(jval), rel=1e-5)
+        np.testing.assert_allclose(grad.numpy(), np.asarray(jgrad), rtol=1e-5, atol=1e-6)
+
+
+def jax_direct_draws(rng, cfg, p_total, shape):
+    """JAX ``fit_direct``'s draws from ``rng``: the init normals, then per
+    step ``split(key, 3)`` into the point indices, the uniform coordinates
+    and the jitter normals."""
+    rng, init_rng = jax.random.split(rng)
+    init = np.asarray(jax.random.normal(init_rng, (1,) + shape, jnp.float32))
+    draws = []
+    for _ in range(cfg.opt_epochs * max(1, p_total // cfg.batch_points)):
+        rng, key = jax.random.split(rng)
+        k_batch, k_rand, k_off = jax.random.split(key, 3)
+        bshape = (cfg.batch_points, 3)
+        draws.append((np.asarray(jax.random.randint(k_batch, (cfg.batch_points,), 0, p_total)),
+                      np.asarray(jax.random.uniform(k_rand, bshape, jnp.float32, -1.0, 1.0)),
+                      np.asarray(jax.random.normal(k_off, bshape))))
+    return init, draws
+
+
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_fit_direct_matches_jax(models, with_stats):
+    """Eight Adam steps (2 epochs of 4 batches) on the same points, from
+    JAX's draws; with the category's means/stds and without them."""
+    _, jdec, _, tdec = models
+    points, occ = _pool(n=2000)
+    shape = CFG.latent_shape
+    kw = dict(points_size=2000, batch_points=500, opt_epochs=2)
+    jcfg, tcfg = JFitConfig(**kw), FitConfig(**kw)
+    rng = np.random.default_rng(13)
+    hr = rng.uniform(0.5, 1.5, shape[-1]).astype(np.float32)
+    mid = rng.uniform(-0.2, 0.2, shape[-1]).astype(np.float32)
+    means = rng.normal(size=shape[-1]).astype(np.float32) * 0.1 if with_stats else None
+    stds = rng.uniform(0.05, 0.2, shape[-1]).astype(np.float32) if with_stats else None
+    key = jax.random.PRNGKey(14)
+    want = jfit.fit_direct(jdec, jnp.asarray(points), jnp.asarray(occ), jnp.asarray(hr), jnp.asarray(mid),
+                           means, stds, key, jcfg, latent_shape=shape)
+    init, draws = jax_direct_draws(key, jcfg, len(points), shape)
+    losses = []
+    got = tfit.fit_direct(tdec, to_torch(points), to_torch(occ), to_torch(hr), to_torch(mid), means, stds,
+                          None, tcfg, latent_shape=shape, init_noise=to_torch(init), draws=draws,
+                          losses=losses)
+    assert got.shape == (1,) + shape and len(losses) == 8
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    start = tfit.fit_direct(tdec, to_torch(points), to_torch(occ), to_torch(hr), to_torch(mid), means, stds,
+                            None, dataclasses.replace(tcfg, opt_epochs=0), latent_shape=shape,
+                            init_noise=to_torch(init))
+    assert float((got - start).abs().max()) > 1e-3  # the fit moved the planes
+
+
+def test_fit_real_shape_direct_contract(tmp_path):
+    """``tri_feat_opt.npy`` (NCHW) and ``mesh_opt.obj`` written, the latent
+    returned equal to the saved one, the per-step losses recorded; the same
+    seed gives the same fit (to 1e-7); the JAX engine with the same weights and
+    draws gives the same latent."""
+    _, jparams, unet = unet_pair(dict(vars(CFG.unet)), seed=43)
+    jdec, tdec = decoder_pair(CFG.plane_channels, seed=44)
+    engine = DragEngine(CFG, unet=unet, decoder=tdec, device="cpu")
+    mesh = sphere_mesh()
+    mesh_path = str(tmp_path / "shape.obj")
+    mesh.write(mesh_path)
+    lat = engine.fit_real_shape_direct(mesh_path=mesh_path, path=str(tmp_path / "a"), seed=3)
+    h, w, c = CFG.latent_shape
+    tri = np.load(tmp_path / "a" / "tri_feat_opt.npy")
+    assert tri.shape == (1, c, h, w)
+    np.testing.assert_array_equal(tri.transpose(0, 2, 3, 1), lat)
+    assert os.path.exists(tmp_path / "a" / "mesh_opt.obj")
+    steps = CFG.fit.opt_epochs * (CFG.fit.points_size // CFG.fit.batch_points)
+    assert engine.last_fit_losses.shape == (steps,) and np.isfinite(engine.last_fit_losses).all()
+    walls = engine.last_phase_walls
+    assert walls["path"] == "fit_direct" and walls["opt_steps"] == steps
+    again = engine.fit_real_shape_direct(mesh=mesh, path=str(tmp_path / "b"), seed=3)
+    np.testing.assert_allclose(again, lat, atol=1e-7)  # the CPU's scatter-add order varies
+    with pytest.raises(ValueError, match="need mesh"):
+        engine.fit_real_shape_direct()
+
+    jeng = JDragEngine(jpreset("tiny"), unet_params=jparams, decoder_params=jdec)
+    want = np.asarray(jeng.fit_real_shape_direct(mesh=JTriMesh(mesh.vertices.copy(), mesh.triangles.copy()),
+                                                 path=str(tmp_path / "j"), seed=5))
+    init, draws = jax_direct_draws(jax.random.PRNGKey(5), jeng.config.fit, CFG.fit.points_size,
+                                   CFG.latent_shape)
+    got = engine.fit_real_shape_direct(mesh=mesh, path=str(tmp_path / "t"), seed=5,
+                                       init_noise=to_torch(init), draws=draws)
+    np.testing.assert_allclose(got, want, atol=2e-5)
