@@ -10,7 +10,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    native meshing library (g++) from the checkout's sources into ``build/``;
 2. hold every kernel against its plain PyTorch version at the main path's
    shapes and types (the generic attention kernel in fp32 at the chairs
-   shapes and at the tiny preset's head dim 8, and in bf16 at head dim 8),
+   shapes and at the tiny preset's head dim 8, and in bf16 at head dim 8,
+   at the heads-by-count chairs UNet's 192 over T=256 and 256 over T=64,
+   and at 512),
    and time kernel, plain version, the closest PyTorch library call, and
    the least time the card could take (``bound_ms``); then the backward
    pass: gradients through each kernel's autograd Function (kernel forward,
@@ -59,7 +61,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    meshes, and a ``cli.serve`` session through ``serve_loop`` over a pipe
    (a ``stop`` written while the drag runs), every response ok; timings and
    each batched run's peak device memory are printed beside the card;
-6. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+6. the heads-by-count UNet (``UNetConfig.from_reference_args(
+   num_head_channels=-1)``: 4 heads per attention block, so head dims 128,
+   192 and 256) at the published chairs width, on its own ``DragEngine``:
+   DDIM-10 at batch 2 (twice), a 20-step ``update_latent_params`` and a
+   2-step fast drag, at 71/71/5/11 launches per forward exactly, then its
+   per-forward kernel accounting;
+7. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA card is present or when the
@@ -306,11 +314,17 @@ def kernel_checks(hk, dev):
 
     # The generic kernel: fp32 at the chairs shapes and at the tiny preset's
     # head dim 8, bf16 at head dim 8 (the dtypes and head dims the wgmma
-    # kernel does not take). Bound: bytes, or fp32 FMA at 67 TFLOP/s.
+    # kernel does not take), bf16 at the heads-by-count chairs UNet's head
+    # dims (192 over T=256 at 16^2, 256 over T=64 at 8^2) and past 256 (512:
+    # the chunked path). Bound: the bytes, or the products on the route's
+    # units: bf16 tensor cores (989 TFLOP/s) for bf16, three TF32 passes
+    # (495 TFLOP/s) for fp32 (3xTF32; the fp32 FMA bound at 67 TFLOP/s is
+    # printed beside it).
     rows["attention_generic"] = []
     for t, heads, ch, dtype in ((1024, 8, 64, torch.float32), (256, 12, 64, torch.float32),
                                 (64, 16, 64, torch.float32), (64, 4, 8, torch.float32),
-                                (64, 4, 8, torch.bfloat16)):
+                                (64, 4, 8, torch.bfloat16), (256, 4, 192, torch.bfloat16),
+                                (64, 4, 256, torch.bfloat16), (64, 2, 512, torch.bfloat16)):
         qkv = torch.randn((2, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
         dname = str(dtype)[6:]
         got = hk.attention_qkv(qkv, heads)
@@ -322,17 +336,28 @@ def kernel_checks(hk, dev):
         k_ms = device_ms(lambda: hk.attention_qkv(qkv, heads), kernel="attention_generic_kernel")
         p_ms = device_ms(lambda: dense_qkv_attention(qkv, heads), 5)
         lib_ms = library_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5))
-        b_ms, b_by = bound_ms(nbytes(qkv, got), fp32_flops=4.0 * 2 * heads * t * t * ch)
+        products, softmax = 4.0 * 2 * heads * t * t * ch, 4.0 * 2 * heads * t * t
+        fma_ms, _ = bound_ms(nbytes(qkv, got), fp32_flops=products)
+        if dtype == torch.float32:
+            b_ms, b_by = bound_ms(nbytes(qkv, got), tf32_flops=3 * products, fp32_flops=softmax)
+            unit = "3xTF32 at 495 TFLOP/s" if b_by == "operations" else "bytes at 3.35 TB/s"
+        else:
+            b_ms, b_by = bound_ms(nbytes(qkv, got), tensor_flops=products, fp32_flops=softmax)
+            unit = "bf16 tensor cores at 989 TFLOP/s" if b_by == "operations" else "bytes at 3.35 TB/s"
+        geo = hk.attention_generic_geometry(2, t, heads, ch, dtype)
         say(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {lib_ms} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({unit}; fp32 FMA bound {fma_ms:.4f} ms), launch: bucket "
+            f"{geo['bucket']}, {'chunked' if geo['chunked'] else 'fast path'}, grid {geo['grid']}, "
+            f"cluster split {geo['split']}")
         rows["attention_generic"].append(dict(shape=list(qkv.shape), heads=heads, dtype=dname,
-                                              ms=k_ms, bound_ms=b_ms, library_ms=lib_ms,
-                                              plain_ms=p_ms, max_abs_err=err))
+                                              ms=k_ms, bound_ms=b_ms, bound_by=b_by,
+                                              bound_unit=unit, fp32_fma_bound_ms=fma_ms,
+                                              library_ms=lib_ms, plain_ms=p_ms, max_abs_err=err))
         if "attention_generic" not in report:
             report["attention_generic"] = dict(
                 shape=list(qkv.shape), heads=heads, dtype=dname, max_abs_err=err,
                 tol="1e-4 (fp32), 2e-2 (bf16)", ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by,
+                bound_ms=b_ms, bound_by=b_by, bound_unit=unit, fp32_fma_bound_ms=fma_ms,
             )
     for name, r in rows.items():
         report[name]["shapes"] = r
@@ -359,6 +384,7 @@ FP32_GN = [(16, 16, 32), (8, 8, 64), (8, 8, 128), (16, 16, 96), (16, 16, 16), (8
            (8, 8, 48), (16, 16, 48)]
 CHAIRS_ATTN = [(1024, 8, 64), (256, 12, 64), (64, 16, 64)]  # T, heads, head dim; bf16
 FP32_ATTN = [(64, 4, 16), (64, 4, 8)]  # the edit-gate toy's middle block; tiny
+HEADS_BY_COUNT_ATTN = [(256, 4, 192), (64, 4, 256)]  # heads-by-count chairs, 16^2 and 8^2; bf16
 GRAD_TOL = {BF16: 1e-2, FP32: 1e-5}  # of the largest gradient magnitude
 
 
@@ -398,7 +424,8 @@ def backward_checks(hk, dev, report) -> None:
             fail(f"groupnorm_silu gradient at [1,{h},{w},{c}] {dtype}: relative error {err:.2e}")
     say(f"  groupnorm_silu, {len(cases)} inputs (21 chairs, {len(FP32_GN)} fp32 UNet): "
         f"largest relative gradient error {worst['gn']:.2e} (tol 1e-2 bf16, 1e-5 fp32) ok")
-    for (t, heads, ch), dtype in [(a, BF16) for a in CHAIRS_ATTN] + [(a, FP32) for a in FP32_ATTN]:
+    for (t, heads, ch), dtype in ([(a, BF16) for a in CHAIRS_ATTN + HEADS_BY_COUNT_ATTN]
+                                  + [(a, FP32) for a in FP32_ATTN]):
         qkv = torch.randn((1, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
         err = grad_rel_err(lambda q: hk.attention_qkv(q, heads),
                            lambda q: dense_qkv_attention(q, heads), (qkv,), seed=t + ch)
@@ -877,9 +904,10 @@ def unet_forward_ms(engine, batch):
         return cuda_ms(lambda: engine.unet(x, t), 5)
 
 
-def forward_accounting(engine) -> dict:
-    """Each kernel's device ms, launches and summed bound per chairs forward
-    at batch 1 and 2, with the shapes recorded during the forward."""
+def forward_accounting(engine, label="chairs") -> dict:
+    """Each kernel's device ms, launches and summed bound per forward of the
+    engine's UNet at batch 1 and 2, with the shapes recorded during the
+    forward."""
     from ishapediting_tpu_torch.tools.profile_unet import kernel_accounting
 
     out = {}
@@ -895,7 +923,7 @@ def forward_accounting(engine) -> dict:
         acc = kernel_accounting(fwd)
         out[f"batch{batch}"] = acc["kernels"]
         for name, k in acc["kernels"].items():
-            say(f"  per chairs forward, batch {batch}: {name} {k['ms']:.4f} ms, "
+            say(f"  per {label} forward, batch {batch}: {name} {k['ms']:.4f} ms, "
                 f"{k['launches']} launches, summed bound {k['bound_ms']:.4f} ms")
     return out
 
@@ -1188,6 +1216,101 @@ def serve_session(hk, counter, per_fwd, totals, cfg, card) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the heads-by-count UNet at chairs width
+# ---------------------------------------------------------------------------
+
+
+def launches_per_forward(hk, ucfg) -> dict:
+    """Each kernel's launches in one forward of a UNet of config ``ucfg``:
+    two GroupNorm launches per GroupNorm-SiLU call, and each attention call
+    on the kernel ``attention_route`` picks for its head dim."""
+    from ishapediting_tpu_torch.models.unet import attention_head_dims, kernel_calls_per_forward
+
+    gn, _ = kernel_calls_per_forward(ucfg)
+    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": 0}
+    for ch in attention_head_dims(ucfg):
+        want[hk.attention_route(ucfg.torch_compute_dtype, ch)] += 1
+    return want
+
+
+def counted_routes(hk, counter, totals, phase, fn, forwards, per):
+    """Run ``fn`` with the launch counters and the forward counter set to 0
+    just before and read just after: ``forwards`` UNet forwards, each
+    launching ``per`` (a LAUNCHES-keyed dict). Returns (fn's result, wall s)."""
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    got = dict(hk.LAUNCHES)
+    want = {k: v * forwards for k, v in per.items()}
+    say(f"  launches in {phase}: {got} for {counter.n} UNet forwards (want {want})")
+    if counter.n != forwards or got != want:
+        fail(f"{phase}: {counter.n} forwards and launches {got}, expected {forwards} and {want}")
+    for k, v in got.items():
+        totals[k] = totals.get(k, 0) + v
+    return out, wall
+
+
+def heads_by_count_runs(hk, counter, totals) -> dict:
+    """The UNet that splits heads by count (``num_head_channels=-1``, ADM's
+    ``num_heads=4``) at the published chairs width, bf16 torso, random
+    weights: heads of 128 channels at 32^2 (the wgmma kernel), 192 at 16^2
+    and 256 at 8^2 (the generic kernel). Through the normal entry points:
+    a ``DragEngine``, DDIM-10 at batch 2 by ``parallel/sampling.py`` as
+    ``cli.generate`` drives it on that engine's UNet (twice: first run, then
+    steady state), a 20-step ``update_latent_params`` (w_time 10, its mesh
+    at 64^3: the 256^3 mesh tail is timed by phase 4), and a 2-step fast
+    drag, whose steps reach the generic kernel's Function in the forward
+    and recompute the plain composition in the backward. Launch counts
+    exact per run; then each kernel's ms, launches and summed bound per
+    forward at batch 1 and 2."""
+    from ishapediting_tpu_torch.config import PipelineConfig, UNetConfig
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.parallel.sampling import sample_batches
+
+    base = PipelineConfig(unet=UNetConfig.from_reference_args(num_head_channels=-1))
+    cfg = dataclasses.replace(base.with_steps(20), edit=dataclasses.replace(
+        base.edit, w_time=10, feat_layer=8, shape_resolution=64))
+    per = launches_per_forward(hk, cfg.unet)
+    expected = {"gn_stats": 71, "gn_norm": 71, "attention": 5, "attention_generic": 11}
+    say(f"  heads-by-count UNet (num_heads 4, num_head_channels -1): per forward {per}")
+    if per != expected:
+        fail(f"heads-by-count launches per forward {per} are not {expected}")
+    engine = DragEngine(config=cfg, seed=0, device="cuda")
+    sched = make_schedule(1000, "linear", "ddim10").to(engine.device)
+    kw = dict(num_samples=2, batch_size=2, latent_shape=cfg.latent_shape, device=engine.device,
+              sampler="ddim")
+    out = {}
+    for run in ("first", "steady"):
+        samples, wall = counted_routes(hk, counter, totals, f"heads-by-count DDIM-10 ({run})",
+                                       lambda: sample_batches(sched, engine.model_fn(), **kw), 10, per)
+        if samples.shape != (2,) + cfg.latent_shape or not np.isfinite(samples).all():
+            fail(f"heads-by-count DDIM-10: samples {samples.shape} not finite or of the wrong shape")
+        out[f"ddim10_{run}_samples_per_s"] = 2 / wall
+        say(f"  heads-by-count DDIM-10 at batch 2 ({run} run): {wall:.3f} s, {2 / wall:.3f} samples/s")
+    lat, wall = counted_routes(hk, counter, totals, "heads-by-count update_latent_params",
+                               lambda: engine.update_latent_params(seed=0), 20, per)
+    check_mesh("heads-by-count update_latent_params", engine.mesh0, engine.last_mesh_walls)
+    if not np.isfinite(lat).all() or engine.feature_guidance.shape[0] != 10:
+        fail("heads-by-count update_latent_params: latent or guidance cache not as expected")
+    out["update_latent_params_s"] = wall
+    mesh, wall = counted_routes(hk, counter, totals, "heads-by-count drag (2 guided steps)",
+                                lambda: engine.drag_edit(*HANDLE, seed=0, chunk=1, edit_steps=2),
+                                2, per)
+    losses = engine.last_drag_losses
+    if not (np.isfinite(engine.edited_latent).all() and np.isfinite(losses["motion"]).all()
+            and len(losses["motion"]) == 2):
+        fail("heads-by-count drag: edited latent or losses not finite")
+    out["drag_2_steps_s"] = wall
+    say(f"  heads-by-count: update_latent_params {out['update_latent_params_s']:.2f} s (20 steps, "
+        f"64^3 mesh), drag {wall:.2f} s for 2 guided steps (motion loss {losses['motion'][0]:.4g} "
+        f"-> {losses['motion'][-1]:.4g}, edited latent finite)")
+    out["per_forward"] = forward_accounting(engine, "heads-by-count")
+    return out
 
 
 def main() -> None:
@@ -1263,6 +1386,9 @@ def main() -> None:
     say("[5] serving surfaces on the chairs engine (direct fit, morph, cli.morph, cli.batch_edit, "
         "batched drag with and without remat, batched fit, cli.serve)")
     serving = serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card)
+    say("[6] heads-by-count UNet (UNetConfig.from_reference_args(num_head_channels=-1)) at chairs "
+        "width: DDIM-10 at batch 2, update_latent_params, a 2-step drag")
+    hbc = heads_by_count_runs(hk, counter, totals)
     counter.close()
     edits["march"] = march_compare(engine, lat)
     per_forward = forward_accounting(engine)
@@ -1285,10 +1411,13 @@ def main() -> None:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
             shapes=r["shapes"], per_forward={b: per_forward[b][name] for b in per_forward},
+            per_forward_heads_by_count={b: hbc["per_forward"][b][name] for b in hbc["per_forward"]},
             backward_rel_err=r["backward_rel_err"],
         ))
     say("edit path: " + json.dumps({"gate": gate, **edits}, default=float))
     say("serving: " + json.dumps(serving, default=float))
+    say("heads-by-count: " + json.dumps({k: v for k, v in hbc.items() if k != "per_forward"},
+                                        default=float))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -40,7 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DPM-Solver++(2M) on a log-SNR-uniform grid")
     p.add_argument("--shape_resolution", type=int, default=256)
     p.add_argument("--sharded_decode", action="store_true",
-                   help="decode one grid per GPU (waits for the multi-GPU slice: raises)")
+                   help="decode one grid per device; the engine runs on one device, so the "
+                        "grids are decoded one at a time, as without the flag (the JAX "
+                        "package's rule with one usable device)")
     p.add_argument("--save_npz", action="store_true",
                    help="also save one samples_NxHxWxC.npz batch file (image_sample.py contract)")
     p.add_argument("--save_intermediate", type=str, default=None,
@@ -55,9 +57,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.sharded_decode:
-        raise SystemExit("--sharded_decode needs several GPUs: waits for ROADMAP Queue 1 #15 "
-                         "(multi-GPU); the port decodes one grid at a time")
     snapshot_steps = None
     if args.save_intermediate:
         snapshot_steps = tuple(int(s) for s in args.save_intermediate.split(",") if s != "")

@@ -400,8 +400,10 @@ def _readable(stream) -> bool:
 def main(argv=None):
     ap = argparse.ArgumentParser(description="JSON-lines edit server")
     ap.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--cpu", action="store_true",
+                    help="the JAX package's flag: the same as --device cpu")
     args = ap.parse_args(argv)
-    serve_loop(sys.stdin, sys.stdout, EditServer(device=args.device))
+    serve_loop(sys.stdin, sys.stdout, EditServer(device="cpu" if args.cpu else args.device))
 
 
 if __name__ == "__main__":

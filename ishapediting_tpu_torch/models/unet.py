@@ -164,6 +164,16 @@ def kernel_calls_recomputed(cfg: UNetConfig, feat_layer: int, head: bool = False
     return 2 * sum(l.kind == "res" for l in layers), sum(l.kind == "attn" for l in layers)
 
 
+def attention_head_dims(cfg: UNetConfig) -> List[int]:
+    """Head dim of each attention call of one forward, in block order
+    (input, middle, output): a block's channels over its heads, which for
+    ``num_head_channels == -1`` (heads by count) grow with the level."""
+    layout = build_layout(cfg)
+    layers = [l for b in layout.input_blocks for l in b] + list(layout.middle_block)
+    layers += [l for b in layout.output_blocks for l in b]
+    return [l.in_ch // l.heads for l in layers if l.kind == "attn"]
+
+
 def kernel_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
     """(GroupNorm-SiLU calls, attention calls) of one forward: those of
     every block, and the output head's GroupNorm-SiLU."""

@@ -12,11 +12,11 @@ Two ops, four kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
   ``gn_norm`` merges the partials and normalizes. Replaces
   ``ishapediting_tpu/ops/pallas_kernels.py::groupnorm_silu``.
 - ``attention_qkv``: ADM legacy QKV attention over ``[N, T, H*3*ch]`` at
-  every dtype and head dim the TPU kernel takes up to 128. bf16 at ch in
+  every dtype (fp32, bf16) and head dim the TPU kernel takes. bf16 at ch in
   {32, 64, 128} takes the ``wgmma`` + TMA kernel (``csrc/attention.cu``,
   counted as ``attention``); fp32 at any ch and bf16 at any other ch take
-  the generic fp32-FMA kernel (``csrc/attention_generic.cu``, counted as
-  ``attention_generic``). Replaces
+  the generic ``mma.sync`` kernel (``csrc/attention_generic.cu``: bf16
+  tensor cores, fp32 as 3xTF32; counted as ``attention_generic``). Replaces
   ``ishapediting_tpu/ops/pallas_kernels.py::attention_qkv``.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
@@ -70,7 +70,8 @@ def record_launches():
     """Yield a list that gets one dict per kernel launch inside the block:
     ``kernel``, ``shape`` and ``dtype`` of its main input, the ``bytes`` it
     must move (each input read once, each output written once) and its
-    ``tensor_flops`` (bf16 tensor cores) and ``fp32_flops`` (FMA units).
+    ``tensor_flops`` (bf16 tensor cores), ``tf32_flops`` (TF32 tensor cores)
+    and ``fp32_flops`` (FMA units).
     ``gn_norm`` is recorded where ``groupnorm_silu_cuda`` launches it."""
     global _records
     outer, _records = _records, []
@@ -81,10 +82,11 @@ def record_launches():
 
 
 def _record(kernel: str, x: torch.Tensor, nbytes: int, tensor_flops: float = 0.0,
-            fp32_flops: float = 0.0) -> None:
+            fp32_flops: float = 0.0, tf32_flops: float = 0.0) -> None:
     if _records is not None:
         _records.append(dict(kernel=kernel, shape=tuple(x.shape), dtype=str(x.dtype)[6:],
-                             bytes=nbytes, tensor_flops=tensor_flops, fp32_flops=fp32_flops))
+                             bytes=nbytes, tensor_flops=tensor_flops, fp32_flops=fp32_flops,
+                             tf32_flops=tf32_flops))
 
 
 def _nbytes(*ts) -> int:
@@ -162,7 +164,7 @@ def _load() -> ctypes.CDLL:
             lib.ishape_attention_smem.restype = i
             lib.ishape_attention_generic.argtypes = [p, p, i, i, i, i, i, i, p]
             lib.ishape_attention_generic.restype = i
-            lib.ishape_attention_generic_smem.argtypes = [i]
+            lib.ishape_attention_generic_smem.argtypes = [i, i]
             lib.ishape_attention_generic_smem.restype = i
             lib.ishape_error_string.argtypes = [i]
             lib.ishape_error_string.restype = ctypes.c_char_p
@@ -471,11 +473,17 @@ _ATTN_HEAD_DIMS = (32, 64, 128)  # the wgmma kernel's, in bf16
 _ATTN_ROWS = 64  # query rows per CTA (one consumer warpgroup)
 _ATTN_STAGES = 3  # K/V ring depth
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ATTN_MAX_CH = 128
-_ATTN_GENERIC_THREADS = 256
-_ATTN_GENERIC_ROWS = 64  # query rows per CTA: four per thread, 16 lanes per row group
-_ATTN_GENERIC_KEYS = 64  # keys per K/V tile
-_ATTN_GENERIC_STRIDE = 68  # row stride of the transposed Q, K and P tiles, in floats
+_ATTN_GENERIC_THREADS = 128  # four warps, 16 query rows each
+_ATTN_GENERIC_ROWS = 64  # query rows per CTA
+# O-accumulator buckets (output channels held in registers); past the last,
+# the chunked path.
+_ATTN_GENERIC_BUCKETS = {torch.float32: (16, 32, 48, 64, 96, 128),
+                         torch.bfloat16: (16, 32, 48, 64, 96, 128, 192, 256)}
+_ATTN_GENERIC_STAGES = {torch.float32: 3, torch.bfloat16: 4}  # K/V ring depth
+_ATTN_GENERIC_CHUNK = 64  # Q/K channels per chunk of the chunked path
+_ATTN_GENERIC_SLICE = 256  # output channels per CTA of the chunked path
+_ATTN_GENERIC_MAX_SPLIT = 4  # CTAs per cluster sharing a query tile's keys, at most
+_ATTN_GENERIC_PAD = {torch.float32: 4, torch.bfloat16: 8}  # 16 bytes of row padding
 
 
 def attention_geometry(n: int, t: int, heads: int, ch: int) -> dict:
@@ -496,32 +504,69 @@ def attention_geometry(n: int, t: int, heads: int, ch: int) -> dict:
     )
 
 
-def attention_generic_geometry(n: int, t: int, heads: int, ch: int) -> dict:
+def attention_generic_geometry(n: int, t: int, heads: int, ch: int,
+                               dtype: torch.dtype = torch.float32) -> dict:
     """Launch shape of the generic attention kernel
-    (``csrc/attention_generic.cu``): 256 threads per (64 query rows,
-    batch*head), grid (query tiles, n*heads); the head dim padded to ``chp``,
-    a power of two from 8 to 128 (V and O to at least 16 channels). Shared
-    memory in fp32, as ``Layout<CHP>::BYTES``: Q^T and K^T [chp][68], V
-    [64][max(chp, 16) + 4], P^T [64][68]."""
-    if not 1 <= ch <= _ATTN_MAX_CH:
-        raise ValueError(f"head dim {ch} not supported (kernel takes 1..{_ATTN_MAX_CH})")
-    chp = max(8, 1 << (ch - 1).bit_length())
-    rows, keys, stride = _ATTN_GENERIC_ROWS, _ATTN_GENERIC_KEYS, _ATTN_GENERIC_STRIDE
+    (``csrc/attention_generic.cu``): 128 threads (four warps of 16 query
+    rows) per CTA; grid (query tiles of 64 rows, n*heads, z). The head dim
+    is padded to ``chp``, the next multiple of 16.
+
+    Fast path (``chunked`` false: fp32 up to chp 128, bf16 up to 256): the O
+    accumulator is sized by the least ``bucket`` >= chp; K/V tiles of
+    ``keys_per_tile`` (32 for fp32 and past bucket 128, else 64) in a ring
+    of ``stages`` (3 fp32, 4 bf16). Shared memory in rows of chp + pad
+    elements (pad: 16 bytes): Q and the ring (64 + 2 * stages * keys rows),
+    for fp32 also the lo halves of the 3xTF32 split of Q, K and V (64 + 2 *
+    keys rows). bf16 at ch 192 and 256 (``tma``): TMA boxes into unpadded,
+    128-byte swizzled rows after 1 KB of alignment slack. A thread block
+    cluster of ``split`` CTAs (grid z) shares each query tile's key tiles:
+    doubled up to 4 while the grid stays within half the SMs and each CTA
+    keeps two key tiles.
+
+    Chunked path (past the fast path): grid z slices the output channels by
+    256; logits over chunks of 64 channels; tiles of 32 keys; shared memory
+    Q [64][64 + pad], K [32][64 + pad], V [32][256 + pad], twice for fp32.
+    ``smem_bytes`` mirrors ``smem_bytes``/``smem_tma`` in the source."""
+    if ch < 1:
+        raise ValueError(f"head dim {ch} not supported (kernel takes any ch >= 1)")
+    if dtype not in _ATTN_DTYPES:
+        raise TypeError(f"qkv: dtype {dtype} not supported (want {tuple(_ATTN_DTYPES)})")
+    tf32x3 = dtype == torch.float32  # hi and lo halves in shared memory
+    chp = 16 * -(-ch // 16)
+    slice_, chunk, rows = _ATTN_GENERIC_SLICE, _ATTN_GENERIC_CHUNK, _ATTN_GENERIC_ROWS
+    buckets, stages = _ATTN_GENERIC_BUCKETS[dtype], _ATTN_GENERIC_STAGES[dtype]
+    chunked = chp > buckets[-1]
+    bucket = slice_ if chunked else next(b for b in buckets if chp <= b)
+    keys = 32 if tf32x3 or bucket > 128 else 64
+    pad, elt = _ATTN_GENERIC_PAD[dtype], (4 if tf32x3 else 2)
+    tma = not tf32x3 and not chunked and ch % 64 == 0 and ch > 128
+    if chunked:
+        smem = elt * (2 if tf32x3 else 1) * ((rows + keys) * (chunk + pad) + keys * (slice_ + pad))
+    elif tma:
+        smem = 1024 + elt * (rows + 2 * stages * keys) * ch
+    else:
+        smem = elt * (rows + 2 * stages * keys + (rows + 2 * keys if tf32x3 else 0)) * (chp + pad)
+    qtiles, key_tiles = -(-t // rows), -(-t // keys)
+    split = 1
+    while (not chunked and split < _ATTN_GENERIC_MAX_SPLIT
+           and 2 * split * qtiles * n * heads <= NUM_SMS // 2 and 4 * split <= key_tiles):
+        split *= 2
     return dict(
-        threads=_ATTN_GENERIC_THREADS, grid=(-(-t // rows), n * heads), chp=chp,
-        key_tiles=-(-t // keys),
-        smem_bytes=4 * (2 * chp * stride + keys * (max(chp, 16) + 4) + keys * stride),
+        threads=_ATTN_GENERIC_THREADS,
+        grid=(qtiles, n * heads, -(-chp // slice_) if chunked else split),
+        chp=chp, bucket=bucket, chunked=chunked, tma=tma, keys_per_tile=keys, key_tiles=key_tiles,
+        stages=0 if chunked else stages, split=split, smem_bytes=smem,
     )
 
 
 def attention_route(dtype: torch.dtype, ch: int) -> str:
     """Which kernel (``LAUNCHES`` key) takes qkv of ``dtype`` at head dim
     ``ch``: the wgmma kernel for bf16 at ch in {32, 64, 128}, the generic one
-    for fp32 or bf16 at any other ch up to 128; anything else raises."""
+    for fp32 or bf16 at any other ch >= 1; anything else raises."""
     if dtype not in _ATTN_DTYPES:
         raise TypeError(f"qkv: dtype {dtype} not supported (want {tuple(_ATTN_DTYPES)})")
-    if not 1 <= ch <= _ATTN_MAX_CH:
-        raise ValueError(f"head dim {ch} not supported (kernels take 1..{_ATTN_MAX_CH})")
+    if ch < 1:
+        raise ValueError(f"head dim {ch} not supported (kernels take any ch >= 1)")
     if dtype == torch.bfloat16 and ch in _ATTN_HEAD_DIMS:
         return "attention"
     return "attention_generic"
@@ -553,12 +598,18 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         _record(route, qkv, _nbytes(qkv, out), tensor_flops=products,
                 fp32_flops=4.0 * n * num_heads * t * t)
     else:
-        geo = attention_generic_geometry(n, t, num_heads, ch)
+        geo = attention_generic_geometry(n, t, num_heads, ch, qkv.dtype)
         _check(lib, lib.ishape_attention_generic(
             qkv.data_ptr(), out.data_ptr(), _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch,
             geo["chp"], _stream(qkv)
         ), "attention_generic")
-        _record(route, qkv, _nbytes(qkv, out), fp32_flops=products)
+        # bf16: the products on the bf16 tensor cores; fp32: three TF32
+        # passes of each (3xTF32). The softmax on the FMA units.
+        softmax = 4.0 * n * num_heads * t * t
+        if qkv.dtype == torch.bfloat16:
+            _record(route, qkv, _nbytes(qkv, out), tensor_flops=products, fp32_flops=softmax)
+        else:
+            _record(route, qkv, _nbytes(qkv, out), tf32_flops=3 * products, fp32_flops=softmax)
     LAUNCHES[route] += 1
     return out
 

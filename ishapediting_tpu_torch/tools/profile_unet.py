@@ -61,7 +61,8 @@ def kernel_accounting(fwd, iters: int = ITERS) -> dict:
         out[key] = dict(
             ms=sum(e.self_device_time_total for e in rows) / 1e3 / iters,
             launches=len(mine),
-            bound_ms=sum(bound_ms(r["bytes"], r["tensor_flops"], r["fp32_flops"])[0] for r in mine),
+            bound_ms=sum(bound_ms(r["bytes"], r["tensor_flops"], r["fp32_flops"], r["tf32_flops"])[0]
+                         for r in mine),
         )
     busy = sum(e.self_device_time_total for e in events) / 1e3 / iters
     return dict(busy_ms=busy, kernels=out, events=events)

@@ -57,17 +57,20 @@ def cuda_ms(fn: Callable[[], object], iters: int = 20) -> float:
 # Published peaks of one H100 SXM (NVIDIA data sheet; dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+TF32_TENSOR_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 
-def bound_ms(nbytes: float, tensor_flops: float = 0.0, fp32_flops: float = 0.0):
+def bound_ms(nbytes: float, tensor_flops: float = 0.0, fp32_flops: float = 0.0,
+             tf32_flops: float = 0.0):
     """(least ms, what bounds it) of work that moves ``nbytes`` and does
-    ``tensor_flops`` on the bf16 tensor cores and ``fp32_flops`` on the FMA
-    units: the larger of bytes over the HBM rate and operations over the
-    peak rate of their type."""
+    ``tensor_flops`` on the bf16 tensor cores, ``tf32_flops`` on the TF32
+    tensor cores and ``fp32_flops`` on the FMA units: the larger of bytes
+    over the HBM rate and operations over the peak rate of their type."""
     times = {
         "bytes": nbytes / HBM_BYTES_PER_S,
-        "operations": max(tensor_flops / BF16_TENSOR_FLOPS, fp32_flops / FP32_FLOPS),
+        "operations": max(tensor_flops / BF16_TENSOR_FLOPS, tf32_flops / TF32_TENSOR_FLOPS,
+                          fp32_flops / FP32_FLOPS),
     }
     by = max(times, key=times.get)
     return times[by] * 1e3, by

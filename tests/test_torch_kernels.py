@@ -360,6 +360,46 @@ def test_chairs_gn_calls_are_the_listed_pairs(monkeypatch):
     assert set(attn) == {(BF16, 64)} and hk.attention_route(BF16, 64) == "attention"
 
 
+def test_heads_by_count_chairs_calls(monkeypatch):
+    """The heads-by-count chairs UNet (``from_reference_args(
+    num_head_channels=-1)``: 4 heads per attention block) on the meta
+    device, wrappers replaced by recorders: its attention inputs are bf16 at
+    head dim 128 (5 calls, 32^2, the wgmma kernel), 192 (5, 16^2) and 256
+    (6, 8^2 and the middle block), the last two the generic kernel's, as
+    ``attention_head_dims`` lists them; 71 GroupNorm-SiLU calls, as at
+    chairs width with heads of 64."""
+    from ishapediting_tpu_torch.config import PipelineConfig, UNetConfig
+    from ishapediting_tpu_torch.models.unet import (
+        UNetModel, attention_head_dims, kernel_calls_per_forward,
+    )
+
+    gn, attn = [], []
+
+    def gn_rec(x, *args, **kw):
+        gn.append(x.shape)
+        return torch.empty_like(x)
+
+    def attn_rec(qkv, heads):
+        attn.append((qkv.dtype, qkv.shape[1], heads, qkv.shape[-1] // (3 * heads)))
+        return qkv.new_empty(*qkv.shape[:2], qkv.shape[-1] // 3)
+
+    monkeypatch.setattr(hk, "groupnorm_silu", gn_rec)
+    monkeypatch.setattr(hk, "attention_qkv", attn_rec)
+    cfg = PipelineConfig(unet=UNetConfig.from_reference_args(num_head_channels=-1))
+    with torch.device("meta"):
+        unet = UNetModel(cfg.unet)
+        with torch.no_grad():
+            unet(torch.empty((2,) + cfg.latent_shape), torch.zeros(2, dtype=torch.long))
+    dims = [a[3] for a in attn]
+    assert dims == attention_head_dims(cfg.unet)
+    assert sorted(set(attn)) == sorted({(BF16, 1024, 4, 128), (BF16, 256, 4, 192),
+                                        (BF16, 64, 4, 256)})
+    assert (dims.count(128), dims.count(192), dims.count(256)) == (5, 5, 6)
+    assert (len(gn), len(attn)) == kernel_calls_per_forward(cfg.unet) == (71, 16)
+    routes = [hk.attention_route(BF16, ch) for ch in dims]
+    assert routes.count("attention") == 5 and routes.count("attention_generic") == 11
+
+
 def _check_gn_stats_geometry(n, hw, c, vec):
     geo = hk.gn_stats_geometry(n, hw, c, vec)
     bdx, bdy = geo["block"]
@@ -444,31 +484,107 @@ def test_gn_stats_plain_partials_merge_to_group_stats(shape, groups):
      (BF16, 8, "attention_generic"), (BF16, 16, "attention_generic"),
      (BF16, 48, "attention_generic"), (FP32, 8, "attention_generic"),
      (FP32, 64, "attention_generic"), (FP32, 1, "attention_generic"),
-     (FP32, 128, "attention_generic")],
+     (FP32, 128, "attention_generic"), (FP32, 129, "attention_generic"),
+     (BF16, 256, "attention_generic")],
 )
 def test_attention_route(dtype, ch, route):
     assert hk.attention_route(dtype, ch) == route
 
 
-@pytest.mark.parametrize("dtype,ch,err", [(FP32, 129, ValueError), (BF16, 256, ValueError),
-                                          (FP32, 0, ValueError), (torch.float16, 64, TypeError)])
+@pytest.mark.parametrize("dtype,ch,err", [(FP32, 0, ValueError), (torch.float16, 64, TypeError)])
 def test_attention_route_refuses(dtype, ch, err):
     with pytest.raises(err):
         hk.attention_route(dtype, ch)
 
 
-@pytest.mark.parametrize("n,t,heads,ch", [(2, 1024, 8, 64), (2, 64, 4, 8), (1, 1, 1, 1),
-                                          (2, 65, 3, 40), (1, 77, 2, 128), (2, 256, 12, 9)])
-def test_attention_generic_geometry(n, t, heads, ch):
-    """The padded head dim is the least power of two >= max(ch, 8); each
-    query row is in exactly one 64-row tile; shared memory within 227 KB."""
-    geo = hk.attention_generic_geometry(n, t, heads, ch)
+def _check_generic_geometry(geo, n, t, heads, ch, dtype):
+    """The padded head dim is the next multiple of 16 >= ch; each query row
+    is in exactly one 64-row tile and each key in one key tile; on the fast
+    path (fp32 up to 128, bf16 up to 256) the O accumulator's bucket is the
+    least of its dtype's buckets >= chp and one slice covers every channel,
+    past it slices of 256 cover each channel once; shared memory within
+    227 KB."""
     chp = geo["chp"]
-    assert chp in (8, 16, 32, 64, 128) and ch <= chp and (chp == 8 or 2 * ch > chp)
-    qtiles, bh = geo["grid"]
+    assert chp % 16 == 0 and ch <= chp < ch + 16
+    qtiles, bh, slices = geo["grid"]
     assert bh == n * heads and (qtiles - 1) * 64 < t <= qtiles * 64
-    assert geo["threads"] == 256 and geo["smem_bytes"] <= hk.MAX_SMEM_BYTES
-    assert (geo["key_tiles"] - 1) * 64 < t <= geo["key_tiles"] * 64
+    keys = geo["keys_per_tile"]
+    assert (geo["key_tiles"] - 1) * keys < t <= geo["key_tiles"] * keys
+    assert geo["threads"] == 128 and 0 < geo["smem_bytes"] <= hk.MAX_SMEM_BYTES
+    buckets = (16, 32, 48, 64, 96, 128) + (() if dtype == FP32 else (192, 256))
+    if chp <= buckets[-1]:
+        split = geo["split"]
+        assert not geo["chunked"] and slices == split and split in (1, 2, 4)
+        assert split == 1 or (2 * split <= geo["key_tiles"] and split * qtiles * bh <= 66)
+        if split < 4 and 4 * split <= geo["key_tiles"]:
+            assert 2 * split * qtiles * bh > 66  # doubled as far as it goes
+        assert geo["bucket"] == min(b for b in buckets if b >= chp)
+        assert keys == (32 if dtype == FP32 or geo["bucket"] > 128 else 64)
+        assert geo["stages"] == (3 if dtype == FP32 else 4)
+    else:
+        assert geo["chunked"] and geo["bucket"] == 256 and keys == 32
+        assert (slices - 1) * 256 < chp <= slices * 256
+
+
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+@pytest.mark.parametrize("n,t,heads,ch", [(2, 1024, 8, 64), (2, 64, 4, 8), (1, 1, 1, 1),
+                                          (2, 65, 3, 40), (1, 77, 2, 128), (2, 256, 12, 9),
+                                          (2, 256, 4, 192), (2, 64, 4, 256), (2, 100, 2, 320)])
+def test_attention_generic_geometry(n, t, heads, ch, dtype):
+    geo = hk.attention_generic_geometry(n, t, heads, ch, dtype)
+    _check_generic_geometry(geo, n, t, heads, ch, dtype)
+
+
+@pytest.mark.parametrize("dtype,n,t,heads,ch,split",
+                         [(BF16, 2, 256, 4, 192, 2), (BF16, 1, 256, 4, 192, 4),
+                          (BF16, 2, 64, 4, 256, 1), (BF16, 2, 64, 4, 8, 1),
+                          (FP32, 2, 1024, 8, 64, 1), (FP32, 2, 64, 16, 64, 1),
+                          (FP32, 2, 256, 12, 64, 1), (FP32, 1, 512, 4, 8, 2)])
+def test_attention_generic_split(dtype, n, t, heads, ch, split):
+    """The cluster split at the smoke's shapes: the heads-by-count chairs
+    input bf16 ch 192 over T=256 (8 key tiles of 32; 32 CTAs at batch 2:
+    2, as 4 would fill more than half the SMs; 16 at batch 1: 4, two tiles
+    each), ch 256 over T=64 (two key tiles: 1), bf16 ch 8 at T=64 (one key
+    tile of 64: 1), fp32 (tiles of 32 keys) at the chairs shapes (1), and a
+    small fp32 grid with 16 key tiles (32 CTAs: 2)."""
+    assert hk.attention_generic_geometry(n, t, heads, ch, dtype)["split"] == split
+
+
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+def test_attention_generic_geometry_every_head_dim(dtype):
+    """Every head dim from 1 to 320: the rules of ``_check_generic_geometry``,
+    and the shared memory of the source's layout in rows of chp + pad
+    elements (4 bytes and a pad of 4 for fp32, 2 and 8 for bf16): Q and the
+    K/V ring, and for fp32 the lo halves of Q, K and V; chunked, Q and K
+    chunks of 64 channels and a V slice of 256, twice for fp32; bf16 at ch
+    192 and 256, the TMA layout (unpadded rows after 1 KB of slack). The
+    largest fast-path layouts: fp32 at chp 128, (128 + 6*32 + 2*32) rows of
+    132 floats, 202,752 bytes; bf16 at chp 256 (ch 241 to 255), (64 + 8*32)
+    rows of 264, 168,960; the TMA layout at ch 256, 1024 + 320 rows of 512
+    bytes, 164,864."""
+    elt, pad, lo, stages = (4, 4, 2, 3) if dtype == FP32 else (2, 8, 1, 4)
+    for ch in range(1, 321):
+        geo = hk.attention_generic_geometry(2, 77, 3, ch, dtype)
+        _check_generic_geometry(geo, 2, 77, 3, ch, dtype)
+        keys, chp = geo["keys_per_tile"], geo["chp"]
+        assert geo["tma"] == (dtype == BF16 and ch in (192, 256))
+        if geo["chunked"]:
+            want = elt * lo * ((64 + keys) * (64 + pad) + keys * (256 + pad))
+        elif geo["tma"]:  # 1 KB of alignment slack, unpadded rows
+            want = 1024 + elt * (64 + 2 * stages * keys) * ch
+        else:
+            want = elt * (lo * 64 + 2 * stages * keys + (lo - 1) * 2 * keys) * (chp + pad)
+        assert geo["smem_bytes"] == want
+    assert hk.attention_generic_geometry(1, 64, 1, 128, FP32)["smem_bytes"] == 202752
+    assert hk.attention_generic_geometry(1, 64, 1, 250, BF16)["smem_bytes"] == 168960
+    assert hk.attention_generic_geometry(1, 64, 1, 256, BF16)["smem_bytes"] == 164864
+
+
+def test_attention_generic_geometry_refuses():
+    with pytest.raises(ValueError):
+        hk.attention_generic_geometry(1, 64, 1, 0)
+    with pytest.raises(TypeError):
+        hk.attention_generic_geometry(1, 64, 1, 64, torch.float16)
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +595,9 @@ def test_attention_generic_geometry(n, t, heads, ch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 65, 1024])
 @pytest.mark.parametrize("dtype,ch", [(FP32, 8), (FP32, 16), (FP32, 32), (FP32, 64), (FP32, 128),
-                                      (BF16, 8), (BF16, 16)])
+                                      (BF16, 8), (BF16, 16), (BF16, 40), (BF16, 48), (BF16, 192),
+                                      (BF16, 256), (FP32, 192), (FP32, 256), (FP32, 320),
+                                      (BF16, 320)])
 def test_attention_generic_on_card(cuda_device, dtype, ch, t):
     """The generic kernel against dense_qkv_attention on the same inputs:
     fp32 |kernel - plain| <= 1e-4 (summation order), bf16 2e-2 (the
@@ -501,8 +619,9 @@ def test_attention_generic_on_card(cuda_device, dtype, ch, t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,heads,ch", [(77, 2, 40), (100, 3, 1), (130, 2, 100), (64, 4, 8)])
 def test_attention_generic_any_head_dim_on_card(cuda_device, t, heads, ch):
-    """Head dims that are not powers of two (padded to chp), fp32, inputs
-    x4 so that the running max moves across key tiles: 1e-4 + 1e-5|plain|."""
+    """Head dims that are not multiples of 16 (padded to chp; odd ones load
+    element by element), fp32, inputs x4 so that the running max moves
+    across key tiles: 1e-4 + 1e-5|plain|."""
     rng = np.random.default_rng(t + ch)
     qkv = torch.from_numpy(rng.normal(size=(2, t, heads * 3 * ch)).astype(np.float32) * 4)
     qkv = qkv.to(cuda_device)
@@ -512,11 +631,86 @@ def test_attention_generic_any_head_dim_on_card(cuda_device, t, heads, ch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chp", [8, 16, 32, 64, 128])
-def test_attention_generic_geometry_matches_the_library(cuda_device, chp):
-    geo = hk.attention_generic_geometry(1, 64, 1, chp)
-    assert geo["chp"] == chp
-    assert hk._load().ishape_attention_generic_smem(chp) == geo["smem_bytes"]
+@pytest.mark.parametrize("t,heads,ch", [(97, 2, 191), (40, 1, 257), (70, 2, 333), (33, 1, 600),
+                                        (130, 2, 144)])
+def test_attention_generic_large_head_dims_on_card(cuda_device, t, heads, ch):
+    """fp32 past the fast path (chp > 128: the chunked path, output slices
+    of 256 past 256) and at a head dim that is not a multiple of 16:
+    1e-4 + 1e-5|plain| against the plain fp32 version. Inputs unscaled: at
+    x4 the plain fp32 version's own rounding reaches that tolerance at these
+    head dims (``tools/attention_accuracy.py``), so it cannot referee there;
+    the next test holds the kernel to float64 at x4 instead."""
+    rng = np.random.default_rng(t + ch)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, heads * 3 * ch)).astype(np.float32))
+    qkv = qkv.to(cuda_device)
+    got = hk.attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, dense_qkv_attention(qkv, heads), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,t,heads,ch,split",
+                         [(FP32, 1, 512, 1, 64, 4), (FP32, 1, 700, 1, 9, 4),
+                          (FP32, 2, 333, 2, 100, 2), (BF16, 1, 600, 1, 40, 4),
+                          (BF16, 2, 256, 4, 192, 2), (BF16, 1, 256, 4, 256, 4),
+                          (BF16, 1, 1000, 2, 8, 2)])
+def test_attention_generic_cluster_split_on_card(cuda_device, dtype, n, t, heads, ch, split):
+    """Small grids whose key tiles a cluster of CTAs shares (the split the
+    geometry names), ragged last tiles and odd head dims among them: the
+    merged output within the kernel's tolerance of the plain version
+    (fp32 1e-4 + 1e-5|plain|, bf16 2e-2)."""
+    assert hk.attention_generic_geometry(n, t, heads, ch, dtype)["split"] == split
+    rng = np.random.default_rng(t + ch + n)
+    qkv = torch.from_numpy(rng.normal(size=(n, t, heads * 3 * ch)).astype(np.float32))
+    qkv = qkv.to(cuda_device, dtype)
+    got = hk.attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    want = dense_qkv_attention(qkv, heads)
+    if dtype == FP32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,heads,ch", [(130, 2, 100), (97, 2, 191), (70, 2, 333)])
+def test_attention_generic_fp32_against_float64_on_card(cuda_device, t, heads, ch):
+    """fp32 at inputs x4 (logits of size ~50, the running max moving across
+    tiles): within 1e-4 of ``dense_qkv_attention`` evaluated in float64."""
+    rng = np.random.default_rng(t + ch)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, heads * 3 * ch)).astype(np.float32) * 4)
+    qkv = qkv.to(cuda_device)
+    got = hk.attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    exact = dense_qkv_attention(qkv.double(), heads)
+    torch.testing.assert_close(got.double(), exact, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,heads,ch", [(256, 4, 192), (64, 4, 256), (77, 2, 40), (65, 3, 9),
+                                        (100, 1, 320)])
+def test_attention_generic_bf16_head_dims_on_card(cuda_device, t, heads, ch):
+    """bf16 at the heads-by-count chairs shapes (ch 192 over T=256, ch 256
+    over T=64), at head dims that are not multiples of 16 and past 256:
+    within 2e-2 of the plain version (the wgmma kernel's tolerance)."""
+    rng = np.random.default_rng(t * 7 + ch)
+    qkv = torch.from_numpy(rng.normal(size=(2, t, heads * 3 * ch)).astype(np.float32))
+    qkv = qkv.to(cuda_device, BF16)
+    before = dict(hk.LAUNCHES)
+    got = hk.attention_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["attention_generic"] == before["attention_generic"] + 1
+    want = dense_qkv_attention(qkv, heads)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [FP32, BF16])
+@pytest.mark.parametrize("ch", [1, 8, 9, 16, 40, 64, 100, 128, 144, 192, 256, 320, 600])
+def test_attention_generic_geometry_matches_the_library(cuda_device, ch, dtype):
+    geo = hk.attention_generic_geometry(1, 64, 1, ch, dtype)
+    code = 0 if dtype == FP32 else 1
+    assert hk._load().ishape_attention_generic_smem(ch, code) == geo["smem_bytes"]
 
 
 def _var_form(part):
@@ -558,6 +752,9 @@ def test_gn_stats_chairs_on_card(cuda_device, h, w, c, dtype, n):
 # 16) and the tiny preset (head dim 8).
 CHAIRS_ATTN = [(1024, 8), (256, 12), (64, 16)]
 FP32_ATTN = [(64, 4, 16), (64, 4, 8)]
+# The generic kernel's bf16 inputs of the heads-by-count chairs UNet
+# (num_head_channels -1, 4 heads): 16^2 at ch 192, 8^2 at ch 256.
+HEADS_BY_COUNT_ATTN = [(256, 4, 192), (64, 4, 256)]
 # GroupNorm-SiLU inputs of the fp32 UNets (toy edit gate; tiny preset).
 FP32_GN = [(16, 16, 32), (8, 8, 64), (8, 8, 128), (16, 16, 96), (16, 16, 16), (8, 8, 32),
            (8, 8, 48), (16, 16, 48)]
@@ -655,6 +852,25 @@ def test_attention_generic_grad_on_card(cuda_device, t, heads, ch, n):
     torch.cuda.synchronize()
     assert hk.LAUNCHES["attention_generic"] == before["attention_generic"] + 1
     _assert_grads_close(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("t,heads,ch", HEADS_BY_COUNT_ATTN)
+def test_attention_generic_grad_heads_by_count_on_card(cuda_device, t, heads, ch, n):
+    """The drag step's path at the heads-by-count shapes: the generic
+    kernel's forward, the plain recompute backward, within 1e-2 of the
+    largest gradient (bf16); one forward launch, none in the backward."""
+    rng = np.random.default_rng(ch + n)
+    qkv = torch.from_numpy(rng.normal(size=(n, t, heads * 3 * ch)).astype(np.float32))
+    qkv = qkv.to(cuda_device, BF16)
+    before = dict(hk.LAUNCHES)
+    got, want = grad_pair(lambda q: hk.attention_qkv(q, heads),
+                          lambda q: dense_qkv_attention(q, heads), (qkv,), seed=ch)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["attention_generic"] == before["attention_generic"] + 1
+    assert hk.LAUNCHES["attention"] == before["attention"]
+    _assert_grads_close(got, want, 1e-2)
 
 
 @pytest.mark.cuda

@@ -60,7 +60,11 @@ def test_gn_plain_versions_match_pallas(dtype, atol, shape, film):
 @pytest.mark.parametrize(
     "dtype,n,t,heads,ch,atol",
     [("float32", 2, 64, 4, 8, 2e-5), ("float32", 1, 77, 2, 8, 2e-5),
-     ("bfloat16", 2, 64, 2, 64, 3e-2), ("bfloat16", 1, 40, 3, 64, 3e-2)],
+     ("bfloat16", 2, 64, 2, 64, 3e-2), ("bfloat16", 1, 40, 3, 64, 3e-2),
+     # the heads-by-count chairs UNet's head dims, and one past 256
+     ("float32", 1, 48, 2, 192, 2e-5), ("bfloat16", 1, 48, 2, 192, 3e-2),
+     ("float32", 1, 40, 1, 256, 2e-5), ("bfloat16", 2, 40, 1, 256, 3e-2),
+     ("float32", 1, 33, 1, 320, 2e-5), ("bfloat16", 1, 33, 1, 320, 3e-2)],
 )
 def test_attention_plain_route_matches_pallas(dtype, n, t, heads, ch, atol):
     """fp32: summation order only (2e-5). bf16: the Pallas kernel scales q

@@ -248,6 +248,18 @@ def test_serve_main_reads_stdin(monkeypatch):
     assert lines[0]["ok"] and lines[1]["engine"]["image_size"] == 16
 
 
+def test_serve_main_takes_cpu_flag(monkeypatch):
+    """``--cpu``, the JAX package's flag, runs the server on the CPU as
+    ``--device cpu`` does."""
+    stdin = io.StringIO('{"cmd": "init_random", "preset": "tiny"}\n{"cmd": "quit"}\n')
+    stdout = io.StringIO()
+    monkeypatch.setattr(sys, "stdin", stdin)
+    monkeypatch.setattr(sys, "stdout", stdout)
+    tserve.main(["--cpu"])
+    lines = [json.loads(line) for line in stdout.getvalue().splitlines()]
+    assert len(lines) == 2 and all(line["ok"] for line in lines)
+
+
 # ---------------------------------------------------------------------------
 # metrics and rendering
 # ---------------------------------------------------------------------------

@@ -34,10 +34,23 @@ MINI = dict(
 )
 
 
+# A miniature of the heads-by-count UNet (num_head_channels -1: ADM's
+# num_heads split, UNetConfig.from_reference_args(num_head_channels=-1) at
+# chairs width): one head per attention block, so head dims 128 (ds 2) and
+# 192 (ds 4 and the middle block), past the 128 the port's kernels once
+# stopped at.
+HEADS_BY_COUNT = dict(
+    image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
+    attention_ds=(2, 4), channel_mult=(1, 2, 3), num_heads=1, num_head_channels=-1,
+    dropout=0.0, compute_dtype="float32",
+)
+
+
 @pytest.mark.parametrize(
     "cfg_kwargs,feat_layer",
-    [(MINI, 1), (dict(vars(preset("tiny").unet)), 1), (dict(vars(preset("tiny").unet)), 2)],
-    ids=["mini", "tiny-feat1", "tiny-feat2"],
+    [(MINI, 1), (dict(vars(preset("tiny").unet)), 1), (dict(vars(preset("tiny").unet)), 2),
+     (HEADS_BY_COUNT, 2)],
+    ids=["mini", "tiny-feat1", "tiny-feat2", "heads-by-count"],
 )
 def test_unet_forward_matches_jax(cfg_kwargs, feat_layer):
     jcfg, jparams, model = unet_pair(cfg_kwargs)
