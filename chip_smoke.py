@@ -3,6 +3,7 @@
 one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
+    python3 chip_smoke.py --phases 2,7   # the build and some phases: no result line
 
 Phases, each fatal on failure (exit code 1, no result line):
 
@@ -44,7 +45,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    one 256^3 grid; then each kernel's device ms, launches and summed bound
    per chairs forward at batch 1 and 2
    (``tools/profile_unet.py::kernel_accounting``);
-   in every run of phases 3 to 5 the launch counters are reset just before
+   in every run of phases 3 to 7 the launch counters are reset just before
    it and read just after it, and each must equal the UNet forwards of that
    run times the kernel's calls per forward (a drag or fit step is one
    forward; its backward recomputes through the plain versions and launches
@@ -67,7 +68,22 @@ Phases, each fatal on failure (exit code 1, no result line):
    DDIM-10 at batch 2 (twice), a 20-step ``update_latent_params`` and a
    2-step fast drag, at 71/71/5/11 launches per forward exactly, then its
    per-forward kernel accounting;
-7. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+7. training (``train/``, ``cli/train.py``): one train step (dropout 0.1,
+   remat) on the card against the CPU with the same t, noise and dropout
+   masks, on phase 3's bf16 miniature UNet (loss terms to 3e-2, gradients
+   held to an fp32 step) and on the fp32 tiny UNet through the generic
+   kernel (1e-4); remat against no remat on the card with generator-drawn
+   masks (1e-5); ``train_decoder`` at the published decoder widths on a
+   sphere (held-out accuracy > 0.9); ``cli.train`` at the published chairs
+   width, batch 8 (4 steps, a checkpoint, the checkpoint held to the state,
+   a resume to step 6, ``--export_model_dir`` with the trained decoder),
+   the export served by ``DragEngine.from_model_dir`` (a 20-step
+   ``update_latent_params``); a bf16 miniature overfitting 4 latents in 30
+   steps; train s/step (first and steady), peak memory, checkpoint bytes
+   and save/load seconds and decoder s/step printed; every train step
+   launches the forward's kernels and, under remat, every block's again
+   (141/141/32 per chairs step, exact);
+8. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA card is present or when the
@@ -446,19 +462,33 @@ def backward_checks(hk, dev, report) -> None:
 # ---------------------------------------------------------------------------
 
 
+# phase 3's bf16 miniature UNet (head dim 64: the wgmma attention kernel)
+MINI_BF16 = dict(image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
+                 attention_ds=(2,), channel_mult=(1, 2), num_head_channels=64)
+
+
+def signal_model(cfg, gen):
+    """A UNet of ``cfg`` on the CPU with random weights from ``gen``, its
+    zero modules given signal too, so that every path carries it."""
+    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
+
+    model = init_unet_(UNetModel(cfg), gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    return model
+
+
 def unet_card_check(hk, dev, cfg, tol, what):
     """One UNet forward on the card (kernels) against the same module on
     the CPU (plain versions), small input: relative L2 error of the output
     and the feature tap <= ``tol``, and the launch counts of one forward."""
-    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_, kernel_calls_per_forward
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(5)
-    model = init_unet_(UNetModel(cfg), gen).eval()
-    with torch.no_grad():  # give the zero modules signal, so every path carries it
-        for p in model.parameters():
-            if not p.any():
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    model = signal_model(cfg, gen).eval()
     x = torch.randn((2, cfg.image_size, cfg.image_size, cfg.in_channels), generator=gen)
     t = torch.tensor([3, 700])
     with torch.no_grad():
@@ -524,16 +554,19 @@ def edit_gate_on_card(hk, counter, totals, device="cuda") -> dict:
 
 
 class ForwardCounter:
-    """Counts UNet forwards through a global module hook (no code change)."""
+    """Counts UNet forwards through a global module hook (no code change),
+    and keeps the host time at which each one started."""
 
     def __init__(self, unet_cls):
         self.n = 0
+        self.starts = []
         self._cls = unet_cls
         self._handle = torch.nn.modules.module.register_module_forward_pre_hook(self._hook)
 
     def _hook(self, mod, args):
         if isinstance(mod, self._cls):
             self.n += 1
+            self.starts.append(time.perf_counter())
 
     def close(self):
         self._handle.remove()
@@ -1313,7 +1346,447 @@ def heads_by_count_runs(hk, counter, totals) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+
+def train_step_launches(hk, ucfg, remat: bool = True) -> dict:
+    """Each kernel's launches in one train step of a UNet of config
+    ``ucfg``: the forward's and, under remat, every block's again (the loss
+    reaches the output, and the output head is not checkpointed). The
+    kernels' backward recomputes the plain versions and launches nothing."""
+    from ishapediting_tpu_torch.models.unet import attention_head_dims, kernel_calls_recomputed
+
+    want = launches_per_forward(hk, ucfg)
+    if remat:
+        gn, _ = kernel_calls_recomputed(ucfg, -1, head=True)
+        want["gn_stats"] += gn
+        want["gn_norm"] += gn
+        for ch in attention_head_dims(ucfg):
+            want[hk.attention_route(ucfg.torch_compute_dtype, ch)] += 1
+    return want
+
+
+def check_launches(hk, phase, want, totals=None) -> None:
+    """The launch counters against ``want``; the run's launches are added to
+    ``totals`` unless it is None (a comparison with the plain versions)."""
+    got = dict(hk.LAUNCHES)
+    say(f"  launches in {phase}: {got} (want {want})")
+    if got != want:
+        fail(f"{phase}: launch counts {got} are not {want}")
+    if totals is not None:
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+
+def grad_rel_errs(model, ref) -> dict:
+    """Each parameter's relative L2 error of ``model``'s gradient against
+    ``ref``'s, relative to the larger of the reference tensor's norm and 1e-4
+    of the global gradient norm (a conv bias feeding a GroupNorm of one
+    channel per group has gradient zero up to rounding)."""
+    want = {k: p.grad.detach().double().cpu() for k, p in ref.named_parameters()}
+    got = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+    floor = 1e-4 * float(torch.sqrt(sum(v.square().sum() for v in want.values())))
+    return {k: float((got[k] - want[k]).norm()) / max(float(want[k].norm()), floor) for k in want}
+
+
+def train_card_check(hk, cfg, tol, what, device="cuda") -> dict:
+    """One train step on the card (kernels) against the same step on the
+    CPU (plain versions): the same weights, t, noise and dropout masks, remat
+    on, no gradient clipping; launches exact; the loss terms within ``tol``
+    (relative). Gradients: both steps are held to a third step on the CPU at
+    the next precision (a bf16 torso against fp32, fp32 against float64),
+    each parameter's gradient on the card within the larger of ``tol`` and
+    twice the CPU step's own error (relative L2). On the CPU a bf16 torso
+    puts single tensors' gradients 2-4% from fp32, and fp32 puts the
+    gradients that are zero by symmetry (a conv bias ahead of a GroupNorm
+    of one channel per group) about 1e-4 of the floor from float64."""
+    import copy
+
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.models.unet import UNetModel, draw_dropout_masks
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
+
+    sched = make_schedule(1000, "linear", "")
+    gen = torch.Generator().manual_seed(6)
+    cpu_model = signal_model(cfg, gen)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    s = cfg.image_size
+    batch = torch.randn((2, s, s, cfg.in_channels), generator=gen).clamp(-1, 1)
+    noise = torch.randn(batch.shape, generator=gen)
+    masks = draw_dropout_masks(cfg, 2, gen)
+    t = torch.tensor([3, 700])
+    ref_cfg = dataclasses.replace(cfg, compute_dtype="float32" if cfg.compute_dtype == "bfloat16"
+                                  else "float64")
+    ref_model = UNetModel(ref_cfg)
+    ref_model.load_state_dict(cpu_model.state_dict())
+    ref_model.to(getattr(torch, ref_cfg.compute_dtype))
+    metrics = {}
+    for name, model, mcfg in (("cpu", cpu_model, cfg), (device, card_model, cfg), ("ref", ref_model, ref_cfg)):
+        dev, dt = ("cpu", mcfg.torch_compute_dtype) if name == "ref" else (name, torch.float32)
+        state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
+        sync()
+        hk.reset_launch_counts()
+        metrics[name] = make_train_step(mcfg, sched)(
+            state, batch.to(dev, dt), t=t.to(dev), noise=noise.to(dev, dt),
+            dropout_masks=[None if m is None else m.to(dev) for m in masks])
+        sync()
+        if name == device:
+            check_launches(hk, f"train step ({what})", train_step_launches(hk, cfg))
+    loss_err = max(abs(metrics[device][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+                   for k in ("loss", "mse", "vb"))
+    vs_cpu = grad_rel_errs(card_model, cpu_model)
+    card_err, cpu_err = grad_rel_errs(card_model, ref_model), grad_rel_errs(cpu_model, ref_model)
+    worst = max(card_err, key=lambda k: card_err[k] / max(tol, 2 * cpu_err[k]))
+    ok = loss_err <= tol and card_err[worst] <= max(tol, 2 * cpu_err[worst])
+    out = dict(loss_rel_err=loss_err, grad_vs_cpu=max(vs_cpu.values()), grad_vs_ref=max(card_err.values()),
+               cpu_grad_vs_ref=max(cpu_err.values()), tol=tol, reference=ref_cfg.compute_dtype)
+    say(f"  train step, card against CPU ({what}, dropout {cfg.dropout}): loss "
+        f"{metrics[device]['loss']:.6g} / {metrics['cpu']['loss']:.6g}, loss terms relative error "
+        f"{loss_err:.2e}; gradients, worst relative L2: card against CPU {out['grad_vs_cpu']:.2e}, "
+        f"against the {ref_cfg.compute_dtype} step card {out['grad_vs_ref']:.2e} and CPU "
+        f"{out['cpu_grad_vs_ref']:.2e}; closest to its bound: {worst} {card_err[worst]:.2e} (bound "
+        f"{max(tol, 2 * cpu_err[worst]):.2e}) (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"train step ({what}) on the card disagrees with the CPU")
+    return out
+
+
+def remat_check(hk, cfg, device="cuda") -> dict:
+    """On the card, a train step with generator-drawn dropout masks under
+    remat against the same step without: the same seed gives the same masks
+    in the recompute, so the gradients agree to 1e-5 (relative L2 over all
+    parameters; summation order differs between the two backward passes).
+    A third step under remat with another seed must differ by more than
+    1e-3: a recompute that drew other masks would show."""
+    import copy
+
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
+
+    sched = make_schedule(1000, "linear", "")
+    gen = torch.Generator().manual_seed(7)
+    base = signal_model(cfg, gen)
+    batch = torch.randn((2, cfg.image_size, cfg.image_size, cfg.in_channels), generator=gen).clamp(-1, 1)
+    grads = {}
+    for remat, seed in ((False, 11), (True, 11), (True, 12)):
+        model = copy.deepcopy(base).to(device)
+        state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
+        sync()
+        hk.reset_launch_counts()
+        make_train_step(cfg, sched, remat=remat)(state, batch.to(device),
+                                                 torch.Generator(device=device).manual_seed(seed))
+        sync()
+        check_launches(hk, f"train step, remat {'on' if remat else 'off'}, seed {seed}",
+                       train_step_launches(hk, cfg, remat))
+        grads[remat, seed] = torch.cat([p.grad.detach().double().flatten().cpu() for p in model.parameters()])
+
+    def rel(a, b):
+        return float((grads[a] - grads[b]).norm() / grads[b].norm())
+
+    err, other = rel((True, 11), (False, 11)), rel((True, 12), (False, 11))
+    say(f"  remat against no remat on the card (fp32, dropout {cfg.dropout}, masks from one "
+        f"generator seed): gradients' relative L2 {err:.2e} (tol 1e-5); with another seed "
+        f"{other:.2e} (need > 1e-3)")
+    if not (err <= 1e-5 and other > 1e-3):
+        fail("train step: remat changes the gradients (dropout masks not replayed?)")
+    return dict(grad_rel_err=err, other_seed_rel=other)
+
+
+def sphere_decoder(hk, device="cuda") -> tuple:
+    """``train_decoder`` at the published decoder widths (planes 128^2 x 32
+    channels, Fourier mapping 64, hidden 128) on a sphere's occupancy, 150
+    steps of 2048 points: held-out accuracy > 0.9 as in the JAX package's
+    test, and more than half the inside points found. Launches nothing."""
+    from ishapediting_tpu_torch.io.dataset import MultiOccupancyDataset, OccupancyDataset
+    from ishapediting_tpu_torch.ops.triplane import decode_points
+    from ishapediting_tpu_torch.train.decoder import train_decoder
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-1, 1, (20000, 3)).astype(np.float32)
+    occ = (np.linalg.norm(pts, axis=1) < 0.5).astype(np.float32)
+    batches = MultiOccupancyDataset([OccupancyDataset(pts, occ)]).batches(2048, seed=0)
+    steps = 150
+    sync()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dec, bank = train_decoder(batches, num_objs=1, steps=steps, resolution=128, channels=32,
+                                  mapping=64, hidden=128, lr=3e-3, log_every=1000, device=device)
+    sync()
+    wall = time.perf_counter() - t0
+    check_launches(hk, "decoder training", {k: 0 for k in hk.LAUNCHES})
+    test = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
+    with torch.no_grad():
+        pred = (decode_points(dec, bank[0], torch.from_numpy(test).to(device))[:, 0] > 0).cpu().numpy()
+    truth = np.linalg.norm(test, axis=1) < 0.5
+    acc, inside = float((pred == truth).mean()), float(pred[truth].mean())
+    say(f"  train_decoder (planes 128^2 x 32, mapping 64, hidden 128), {steps} steps of 2048 points: "
+        f"{wall / steps * 1e3:.2f} ms/step ({wall:.2f} s, first step included), held-out accuracy "
+        f"{acc:.4f} (need > 0.9), inside points found {inside:.4f} (need > 0.5)")
+    if not (acc > 0.9 and inside > 0.5):
+        fail("decoder training did not learn the sphere")
+    path = os.path.join(WORK, "sphere_decoder.pt")
+    torch.save(dec.state_dict(), path)
+    return path, dict(s_per_step=wall / steps, accuracy=acc, inside_found=inside)
+
+
+def parse_ckpt(log: str, what: str) -> tuple:
+    """(bytes, seconds) of the loop's "checkpointed <path> (N bytes in S s)"
+    line for ``what``, or (None, seconds) of its "resumed ... (loaded in S
+    s)" line."""
+    for line in log.splitlines():
+        if what in line and "checkpointed" in line:
+            n, _, _, sec, _ = line.rsplit("(", 1)[1].split()
+            return int(n), float(sec)
+        if what in line and "resumed from" in line:
+            return None, float(line.rsplit("loaded in ", 1)[1].split()[0])
+    fail(f"cli.train: no checkpoint line for {what} in its output")
+
+
+def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", device="cuda") -> dict:
+    """``cli.train`` at the published chairs width (421M parameters, bf16
+    torso, dropout 0.1, the 1000-step chain, AdamW lr 1e-4, clip 1.0, EMA
+    0.9999, remat), batch 8 of synthetic 128x128x96 latents: 4 steps with a
+    checkpoint at step 4, the checkpoint loaded and held to the state the
+    run returned, a resume to step 6 with the export of a model dir, and that
+    dir served by ``DragEngine.from_model_dir`` (a 20-step
+    ``update_latent_params`` with a 64^3 mesh). Launches exact per step."""
+    from ishapediting_tpu_torch.cli.train import main as train_main
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.io.checkpoint import load_train_state
+    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.train.loop import latest_checkpoint
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer
+
+    chairs = preset(preset_name)
+    per_step = train_step_launches(hk, chairs.unet)
+    expected = {"gn_stats": 141, "gn_norm": 141, "attention": 32, "attention_generic": 0}
+    say(f"  {preset_name} train step at batch 8: per step {per_step}")
+    if preset_name == "chairs" and per_step != expected:
+        fail(f"chairs launches per train step {per_step} are not {expected}")
+    ckpt, export = os.path.join(WORK, "train_ckpt"), os.path.join(WORK, "train_export")
+    for d in (ckpt, export):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--preset", preset_name, "--synthetic", "16", "--batch_size", "8", "--ckpt_dir", ckpt,
+            "--ckpt_every", "4", "--seed", "0", "--device", device]
+    out = {}
+
+    def run(extra, steps, label):
+        say(f"  python -m ishapediting_tpu_torch.cli.train {' '.join(argv + extra)}")
+        buf = io.StringIO()
+        sync()
+        hk.reset_launch_counts()
+        counter.n, counter.starts = 0, []
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state = train_main(argv + extra)
+        sync()
+        wall = time.perf_counter() - t0
+        if counter.n != steps:
+            fail(f"{label}: {counter.n} UNet forwards for {steps} steps")
+        check_launches(hk, f"{label} ({steps} steps)", {k: v * steps for k, v in per_step.items()}, totals)
+        gaps = np.diff(counter.starts).tolist()  # step i's start to step i+1's
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else float("nan")
+        return state, buf.getvalue(), wall, gaps, peak
+
+    state, log, wall, gaps, peak = run(["--steps", "4"], 4, "cli.train")
+    loss0 = float(next(l for l in log.splitlines() if l.startswith("| loss")).split("|")[2])
+    # a non-finite loss leaves the step count where it was: 4 steps applied = 4 finite losses
+    if state.step != 4 or not np.isfinite(loss0) or latest_checkpoint(ckpt) != os.path.join(ckpt, "step_4"):
+        fail(f"cli.train: step {state.step}, loss {loss0}, checkpoints {os.listdir(ckpt)}")
+    nbytes, save_s = parse_ckpt(log, "step_4")
+    out.update(first_step_s=gaps[0], steady_s=gaps[1:], run_wall_s=wall, peak_gib=peak,
+               ckpt_bytes=nbytes, save_s=[save_s], loss_step0=loss0)
+    say(f"  cli.train: 4 steps at batch 8, step 0 loss {loss0:.4f}; step s {[round(g, 3) for g in gaps]} "
+        f"(first: cuDNN times the new shapes), peak device memory {peak:.2f} GiB; checkpoint step_4 "
+        f"{nbytes / 1e9:.3f} GB saved in {save_s:.2f} s; wall {wall:.1f} s")
+
+    with torch.device(device):
+        fresh = UNetModel(chairs.unet)
+    restored = init_train_state(fresh, make_optimizer(fresh.parameters()))
+    t0 = time.perf_counter()
+    load_train_state(latest_checkpoint(ckpt), restored)
+    sync()
+    load_s = time.perf_counter() - t0
+    saved_opt, got_opt = state.optimizer.state_dict()["state"], restored.optimizer.state_dict()["state"]
+    same = (restored.step == state.step and len(saved_opt) == len(got_opt) > 0
+            and all(torch.equal(a, b) for a, b in zip(state.model.parameters(), fresh.parameters()))
+            and all(torch.equal(state.ema_params[k], v) for k, v in restored.ema_params.items())
+            and all(saved_opt[i][k].device == got_opt[i][k].device and torch.equal(saved_opt[i][k], got_opt[i][k])
+                    for i in saved_opt for k in saved_opt[i]))
+    say(f"  load_train_state(step_4): {load_s:.2f} s; params, EMA, Adam moments and step equal the "
+        f"saved state: {same}")
+    if not same:
+        fail("the loaded checkpoint differs from the state that was saved")
+    out["load_s"] = [load_s]
+    del state, restored, fresh
+
+    state, log, wall, gaps, peak = run(["--steps", "6", "--export_model_dir", export,
+                                        "--decoder_from", decoder_pt], 2, "cli.train resumed")
+    resumed = f"resumed from {os.path.join(ckpt, 'step_4')} at step 4" in log
+    if not (resumed and state.step == 6 and latest_checkpoint(ckpt) == os.path.join(ckpt, "step_6")):
+        fail(f"cli.train resume: resumed {resumed}, step {state.step}, checkpoints {os.listdir(ckpt)}")
+    out["steady_s"] += gaps
+    out["resumed_peak_gib"] = peak  # cuDNN has timed its algorithms: no search in this run
+    out["save_s"].append(parse_ckpt(log, "step_6")[1])
+    out["load_s"].append(parse_ckpt(log, "step_4")[1])
+    say(f"  cli.train resumed at step 4 (loaded in {out['load_s'][-1]:.2f} s), 2 steps to step 6 "
+        f"(step s {[round(g, 3) for g in gaps]}), peak device memory {peak:.2f} GiB, step_6 saved in "
+        f"{out['save_s'][-1]:.2f} s, exported {sorted(os.listdir(export))}; wall {wall:.1f} s")
+
+    cfg = dataclasses.replace(chairs.with_steps(20), edit=dataclasses.replace(
+        chairs.edit, w_time=min(chairs.edit.w_time, 10), shape_resolution=64))
+    t0 = time.perf_counter()
+    engine = DragEngine.from_model_dir(export, config=cfg, device=device)
+    load_s = time.perf_counter() - t0
+    if not all(torch.equal(v, state.ema_params[k]) for k, v in engine.unet.state_dict().items()):
+        fail("the served UNet's weights are not the trained EMA")
+    del state
+    lat, wall, _ = counted(hk, counter, kernel_calls_per_forward(cfg.unet), totals,
+                           "served update_latent_params", lambda: engine.update_latent_params(seed=0), 20)
+    check_mesh("served update_latent_params", engine.mesh0, engine.last_mesh_walls)
+    if lat.shape != (1,) + cfg.latent_shape or not np.isfinite(lat).all():
+        fail("train -> serve: the served latent is not finite or of the wrong shape")
+    say(f"  train -> serve: DragEngine.from_model_dir {load_s:.2f} s (EMA weights), "
+        f"update_latent_params {wall:.2f} s (20 steps, 64^3 mesh), latent finite")
+    out.update(serve_load_s=load_s, serve_update_latent_params_s=wall)
+    for d in (ckpt, export):
+        shutil.rmtree(d)
+    return out
+
+
+def overfit_check(hk, counter, totals, device="cuda") -> dict:
+    """The bf16 miniature UNet (dropout 0.1) trained by ``train.loop.train``
+    on 4 fixed latents for 30 steps at lr 1e-3: the mean loss of the last 5
+    steps below that of the first 5. Launches exact."""
+    import itertools
+
+    from ishapediting_tpu_torch.config import UNetConfig
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
+    from ishapediting_tpu_torch.train.loop import train
+
+    cfg = UNetConfig(**MINI_BF16, dropout=0.1)
+    latents = np.clip(np.random.default_rng(0).standard_normal((4, 16, 16, 6)), -1, 1).astype(np.float32)
+    with torch.device(device):
+        model = init_unet_(UNetModel(cfg), torch.Generator(device=device).manual_seed(0))
+    losses = []
+
+    def record(step):
+        def wrapped(state, batch, gen):
+            metrics = step(state, batch, gen)
+            losses.append(metrics["loss"])
+            return metrics
+
+        return wrapped
+
+    steps = 30
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train(cfg, make_schedule(1000, "linear", ""), model, itertools.repeat(latents), total_steps=steps,
+              lr=1e-3, log_every=1000, step_transform=record)
+    sync()
+    wall = time.perf_counter() - t0
+    if counter.n != steps:
+        fail(f"overfit: {counter.n} UNet forwards for {steps} steps")
+    check_launches(hk, f"overfit ({steps} steps)",
+                   {k: v * steps for k, v in train_step_launches(hk, cfg).items()}, totals)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    say(f"  overfit, bf16 miniature UNet on 4 latents, {steps} steps at lr 1e-3: mean loss of the first "
+        f"5 steps {first:.4f}, of the last 5 {last:.4f}; {wall / steps * 1e3:.1f} ms/step")
+    if not (np.isfinite(losses).all() and last < first):
+        fail("overfit: the loss did not fall")
+    return dict(first5=first, last5=last, s_per_step=wall / steps)
+
+
+def training_runs(hk, counter, totals, card, device="cuda", preset_name="chairs") -> dict:
+    """Phase 7: the train step card against CPU, remat against no remat,
+    decoder training, ``cli.train`` at chairs width -> serve, and a small
+    overfit; the training numbers printed beside the card."""
+    from ishapediting_tpu_torch.config import UNetConfig, preset
+
+    out = {"card_vs_cpu": {
+        "bf16_head_dim_64": train_card_check(hk, UNetConfig(**MINI_BF16, dropout=0.1), 3e-2,
+                                             "bf16 torso, head dim 64", device),
+        "fp32_tiny": train_card_check(hk, dataclasses.replace(preset("tiny").unet, dropout=0.1), 1e-4,
+                                      "fp32 torso, head dim 8, generic attention", device),
+    }}
+    out["remat"] = remat_check(hk, dataclasses.replace(preset("tiny").unet, dropout=0.1), device)
+    decoder_pt, out["decoder"] = sphere_decoder(hk, device)
+    out["chairs"] = chairs_training(hk, counter, totals, decoder_pt, preset_name, device)
+    out["overfit"] = overfit_check(hk, counter, totals, device)
+    c = out["chairs"]
+    steady = float(np.mean(c["steady_s"]))
+    say(f"  training on {card}: {preset_name} train step at batch 8 {c['first_step_s']:.2f} s first, "
+        f"{steady:.3f} s steady ({8 / steady:.2f} samples/s), peak device memory {c['peak_gib']:.2f} GiB "
+        f"with cuDNN's algorithm search, {c['resumed_peak_gib']:.2f} GiB in the resumed run, "
+        f"checkpoint {c['ckpt_bytes'] / 1e9:.3f} GB saved in {c['save_s']} s, loaded in {c['load_s']} s; "
+        f"decoder {out['decoder']['s_per_step'] * 1e3:.2f} ms/step")
+    return out
+
+
+def card_phase(hk, dev, counter, totals) -> dict:
+    """Phase 3: the whole UNet on the card against the CPU, the tiny
+    engine, and the edit gate."""
+    from ishapediting_tpu_torch.config import UNetConfig, preset
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+
+    say("[3] UNet on the card (kernels) against the CPU (plain versions), small input; "
+        "the edit gate")
+    unet_card_check(hk, dev, UNetConfig(**MINI_BF16, dropout=0.0), 3e-2, "bf16 torso, head dim 64")
+    unet_card_check(hk, dev, preset("tiny").unet, 1e-4, "tiny preset: fp32 torso, head dim 8")
+    tiny = preset("tiny")
+    tiny_fwd = kernel_calls_per_forward(tiny.unet)
+    say(f"  tiny per UNet forward: {tiny_fwd[0]} GroupNorm-SiLU calls, {tiny_fwd[1]} attention "
+        f"calls ({hk.attention_route(tiny.unet.torch_compute_dtype, tiny.unet.num_head_channels)})")
+    run_engine(hk, counter, tiny_fwd, totals, tiny, "preset('tiny')", "tiny engine",
+               attn_kernel="attention_generic")
+    return edit_gate_on_card(hk, counter, totals)
+
+
+def main_path(hk, counter, totals) -> dict:
+    """Phase 4: the main path at the published chairs width."""
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+
+    say("[4] main path, published chairs config at full width, random weights "
+        "(step counts cut: 10/10/20-step sampling, w_time 10, fit 3 steps, cli.edit 200 "
+        "generation + 10 guided steps; widths and the 256^3 grid as published)")
+    chairs = preset("chairs", 20)
+    per_fwd = kernel_calls_per_forward(chairs.unet)
+    say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
+    ddim_s = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim")
+    run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
+    chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
+        chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
+    engine, lat, gen_wall = run_engine(hk, counter, per_fwd, totals, chairs,
+                                       "preset('chairs', 20), w_time=10, feat_layer=8")
+    first_mesh = engine.mesh0
+    edits = chairs_edit_runs(hk, counter, per_fwd, totals, engine, lat)
+    say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
+        f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
+    edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals)
+    return dict(chairs=chairs, per_fwd=per_fwd, ddim_s=ddim_s, engine=engine, lat=lat,
+                first_mesh=first_mesh, edits=edits)
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port once on one CUDA card")
+    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7",
+                        help="phases to run after the build (a partial run prints no result line)")
+    phases = {int(p) for p in parser.parse_args().phases.split(",")}
+    if 5 in phases and 4 not in phases:
+        parser.error("phase 5 runs on phase 4's engine")
     watchdog()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "ishapediting_tpu_torch")):
@@ -1322,8 +1795,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one CUDA card")
     from ishapediting_tpu_torch import native
-    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
-    from ishapediting_tpu_torch.config import UNetConfig, preset
+    from ishapediting_tpu_torch.models.unet import UNetModel
     from ishapediting_tpu_torch.ops import hopper_kernels as hk
     from ishapediting_tpu_torch.utils.device import set_cuda_flags
 
@@ -1346,54 +1818,41 @@ def main() -> None:
     say(f"  built {os.path.relpath(lib, ROOT)} and the native library in "
         f"{time.perf_counter() - t0:.1f} s")
     set_cuda_flags()
+    os.makedirs(WORK, exist_ok=True)
 
-    report = kernel_checks(hk, dev)
-    backward_checks(hk, dev, report)
-    say("[3] UNet on the card (kernels) against the CPU (plain versions), small input; "
-        "the edit gate")
-    unet_card_check(hk, dev, UNetConfig(
-        image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
-        attention_ds=(2,), channel_mult=(1, 2), num_head_channels=64, dropout=0.0,
-    ), 3e-2, "bf16 torso, head dim 64")
-    unet_card_check(hk, dev, preset("tiny").unet, 1e-4, "tiny preset: fp32 torso, head dim 8")
+    report = {}
+    if 2 in phases:
+        report = kernel_checks(hk, dev)
+        backward_checks(hk, dev, report)
     counter = ForwardCounter(UNetModel)
     totals: dict = {}
-    tiny = preset("tiny")
-    tiny_fwd = kernel_calls_per_forward(tiny.unet)
-    say(f"  tiny per UNet forward: {tiny_fwd[0]} GroupNorm-SiLU calls, {tiny_fwd[1]} attention "
-        f"calls ({hk.attention_route(tiny.unet.torch_compute_dtype, tiny.unet.num_head_channels)})")
-    run_engine(hk, counter, tiny_fwd, totals, tiny, "preset('tiny')", "tiny engine",
-               attn_kernel="attention_generic")
-    gate = edit_gate_on_card(hk, counter, totals)
-
-    say("[4] main path, published chairs config at full width, random weights "
-        "(step counts cut: 10/10/20-step sampling, w_time 10, fit 3 steps, cli.edit 200 "
-        "generation + 10 guided steps; widths and the 256^3 grid as published)")
-    chairs = preset("chairs", 20)
-    per_fwd = kernel_calls_per_forward(chairs.unet)
-    say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
-    ddim_s = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim")
-    run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
-    chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
-        chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
-    engine, lat, gen_wall = run_engine(hk, counter, per_fwd, totals, chairs,
-                                       "preset('chairs', 20), w_time=10, feat_layer=8")
-    first_mesh = engine.mesh0
-    edits = chairs_edit_runs(hk, counter, per_fwd, totals, engine, lat)
-    say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
-        f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
-    edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals)
-    say("[5] serving surfaces on the chairs engine (direct fit, morph, cli.morph, cli.batch_edit, "
-        "batched drag with and without remat, batched fit, cli.serve)")
-    serving = serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card)
-    say("[6] heads-by-count UNet (UNetConfig.from_reference_args(num_head_channels=-1)) at chairs "
-        "width: DDIM-10 at batch 2, update_latent_params, a 2-step drag")
-    hbc = heads_by_count_runs(hk, counter, totals)
+    if 3 in phases:
+        gate = card_phase(hk, dev, counter, totals)
+    if 4 in phases:
+        mp = main_path(hk, counter, totals)
+        engine, lat, edits = mp["engine"], mp["lat"], mp["edits"]
+    if 5 in phases:
+        say("[5] serving surfaces on the chairs engine (direct fit, morph, cli.morph, cli.batch_edit, "
+            "batched drag with and without remat, batched fit, cli.serve)")
+        serving = serving_runs(hk, counter, mp["per_fwd"], totals, engine, mp["first_mesh"], card)
+    if 6 in phases:
+        say("[6] heads-by-count UNet (UNetConfig.from_reference_args(num_head_channels=-1)) at chairs "
+            "width: DDIM-10 at batch 2, update_latent_params, a 2-step drag")
+        hbc = heads_by_count_runs(hk, counter, totals)
+    if 7 in phases:
+        say("[7] training: a train step card against CPU, remat against no remat, decoder training, "
+            "cli.train at chairs width (batch 8, checkpoint, resume, export) -> serve, an overfit")
+        training = training_runs(hk, counter, totals, card)
     counter.close()
+    if phases != {2, 3, 4, 5, 6, 7}:
+        say(f"partial run (phases {sorted(phases)}): total {time.perf_counter() - t_start:.1f} s; "
+            f"launches {totals}; no result line")
+        return
     edits["march"] = march_compare(engine, lat)
     per_forward = forward_accounting(engine)
     fwd_ms = {b: unet_forward_ms(engine, b) for b in (1, 2)}
     steady_s = ddim_steady_s(engine)
+    ddim_s = mp["ddim_s"]
     say(f"  chairs UNet forward (steady state, CUDA events): batch 1 {fwd_ms[1]:.2f} ms, "
         f"batch 2 {fwd_ms[2]:.2f} ms; DDIM-10 at batch 2: {2 / ddim_s:.3f} samples/s in the "
         f"CLI run (first run: cuDNN algorithm timing included), {2 / steady_s:.3f} samples/s "
@@ -1418,6 +1877,7 @@ def main() -> None:
     say("serving: " + json.dumps(serving, default=float))
     say("heads-by-count: " + json.dumps({k: v for k, v in hbc.items() if k != "per_forward"},
                                         default=float))
+    say("training: " + json.dumps(training, default=float))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -11,8 +11,18 @@ runs in ``compute_dtype`` with weights cast per op; GroupNorm statistics, the
 time embedding and the output head stay fp32; the tapped feature
 (``feat_layer``) is returned in fp32. Activations are NHWC tensors, i.e. the
 channels_last memory of the NCHW tensors cuDNN convolves, which the Hopper
-kernels read with no copy. The module's forward is the inference forward
-(no dropout); parameters are held in fp32.
+kernels read with no copy. Parameters are held in fp32.
+
+``train=True`` applies the config's dropout after the second
+GroupNorm-SiLU of each ResBlock, ``where(keep, hh / (1 - p), 0)`` in the
+activation dtype as the JAX package computes it. The caller passes the keep
+masks of the whole forward, one per dropout site in the JAX package's
+``drop_rngs[site]`` order (``dropout_sites``): drawn from an explicit
+``torch.Generator`` (``draw_dropout_masks``) or injected. They exist before
+any block runs, so a block recomputed under ``remat`` applies the same
+ones (``torch.utils.checkpoint`` would not replay an explicit generator's
+draws). The inference forward (``train=False``: the samplers, drag and
+fit) has no dropout.
 
 ``remat=True`` recomputes each input, middle and output block in the
 backward pass (``torch.utils.checkpoint``, non-reentrant), as the JAX
@@ -25,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -158,20 +168,22 @@ def kernel_calls_recomputed(cfg: UNetConfig, feat_layer: int, head: bool = False
     output (a fit step), so every block runs again (the output head is not
     checkpointed). Two calls per ResBlock, one per attention block."""
     layout = build_layout(cfg)
-    last = len(layout.output_blocks) if head else feat_layer + 1
-    layers = [l for b in layout.input_blocks for l in b] + list(layout.middle_block)
-    layers += [l for b in layout.output_blocks[:last] for l in b]
+    layers = _layers(layout, len(layout.output_blocks) if head else feat_layer + 1)
     return 2 * sum(l.kind == "res" for l in layers), sum(l.kind == "attn" for l in layers)
+
+
+def _layers(layout: Layout, output_blocks: Optional[int] = None) -> List[Layer]:
+    """The layers of the input blocks, the middle block and the first
+    ``output_blocks`` output blocks (all by default), in forward order."""
+    layers = [l for b in layout.input_blocks for l in b] + list(layout.middle_block)
+    return layers + [l for b in layout.output_blocks[:output_blocks] for l in b]
 
 
 def attention_head_dims(cfg: UNetConfig) -> List[int]:
     """Head dim of each attention call of one forward, in block order
     (input, middle, output): a block's channels over its heads, which for
     ``num_head_channels == -1`` (heads by count) grow with the level."""
-    layout = build_layout(cfg)
-    layers = [l for b in layout.input_blocks for l in b] + list(layout.middle_block)
-    layers += [l for b in layout.output_blocks for l in b]
-    return [l.in_ch // l.heads for l in layers if l.kind == "attn"]
+    return [l.in_ch // l.heads for l in _layers(build_layout(cfg)) if l.kind == "attn"]
 
 
 def kernel_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
@@ -179,6 +191,31 @@ def kernel_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
     every block, and the output head's GroupNorm-SiLU."""
     gn, attn = kernel_calls_recomputed(cfg, -1, head=True)
     return gn + 1, attn
+
+
+def dropout_sites(cfg: UNetConfig, batch: int) -> List[Optional[Tuple[int, int, int, int]]]:
+    """The keep mask's shape at each dropout site of a batch-``batch``
+    forward, in the JAX package's ``drop_rngs[site]`` order: every layer of
+    the input, middle and output blocks is a site; a ResBlock's mask has the
+    shape of its output [N, H, W, out_ch], every other site's is None."""
+    size, shapes = cfg.image_size, []
+    for l in _layers(build_layout(cfg)):
+        if l.kind == "downsample" or l.updown == "down":
+            size //= 2
+        elif l.kind == "upsample" or l.updown == "up":
+            size *= 2
+        shapes.append((batch, size, size, l.out_ch) if l.kind == "res" else None)
+    return shapes
+
+
+def draw_dropout_masks(cfg: UNetConfig, batch: int, generator: torch.Generator) -> List[Optional[torch.Tensor]]:
+    """Keep masks for every dropout site of one train forward, drawn on the
+    generator's device: ``uniform < 1 - dropout``, as ``jax.random.bernoulli``."""
+    keep = 1.0 - cfg.dropout
+    return [
+        None if s is None else torch.rand(s, generator=generator, device=generator.device) < keep
+        for s in dropout_sites(cfg, batch)
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -215,12 +252,14 @@ class ResBlock(nn.Module):
         emb_out = 2 * o if layer.scale_shift else o
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_ch, emb_out))
         self.out_layers = nn.Sequential(
-            GroupNorm32(o), nn.SiLU(), nn.Identity(), nn.Conv2d(o, o, 3, padding=1)
+            GroupNorm32(o), nn.SiLU(), nn.Identity(), nn.Conv2d(o, o, 3, padding=1)  # [2]: dropout
         )
         if i != o:
             self.skip_connection = nn.Conv2d(i, o, 1)
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                p: float = 0.0) -> torch.Tensor:
+        """``keep``: the dropout site's keep mask (train mode), ``p`` the rate."""
         x = h
         hh = _gn_silu(self.in_layers[0], h)
         if self.layer.updown == "up":
@@ -237,6 +276,8 @@ class ResBlock(nn.Module):
             hh = _gn_silu(self.out_layers[0], hh, film=(scale, shift))
         else:  # additive time embedding (reference: unet.py:253-255)
             hh = _gn_silu(self.out_layers[0], hh + emb_out[:, None, None, :])
+        if keep is not None:  # the reference's nn.Dropout at out_layers[2]
+            hh = torch.where(keep, hh / torch.tensor(1.0 - p, dtype=hh.dtype), 0.0)
         c2 = self.out_layers[3]
         hh = conv2d(hh, c2.weight, c2.bias, padding=1)
         if self.layer.in_ch != self.layer.out_ch:
@@ -343,7 +384,11 @@ class UNetModel(nn.Module):
         feat_layer: int = -1,
         y: Optional[torch.Tensor] = None,
         remat: bool = False,
+        train: bool = False,
+        dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``train``: apply the config's dropout with ``dropout_masks``, one
+        per site in ``dropout_sites`` order (``draw_dropout_masks``)."""
         cfg = self.config
         if feat_layer >= len(self.output_blocks):
             raise ValueError(
@@ -357,17 +402,29 @@ class UNetModel(nn.Module):
             assert y is not None, "class-conditional model requires y"
             emb = emb + self.label_emb.weight[y]
 
-        def run(block, h, emb, skip=None):
+        p = cfg.dropout if train else 0.0
+        if p > 0.0 and dropout_masks is None:
+            raise ValueError("train=True with dropout needs dropout_masks (draw_dropout_masks)")
+        n_sites = sum(len(b) for b in self.input_blocks) + len(self.middle_block)
+        n_sites += sum(len(b) for b in self.output_blocks)
+        if p > 0.0 and len(dropout_masks) != n_sites:
+            raise ValueError(f"{len(dropout_masks)} dropout masks for {n_sites} sites")
+        sites = iter(dropout_masks if p > 0.0 else [None] * n_sites)
+
+        def run(block, h, emb, skip, keeps):
             if skip is not None:
                 h = torch.cat([h, skip], dim=-1)
-            for mod in block:
-                h = mod(h, emb)
+            for mod, keep in zip(block, keeps):
+                h = mod(h, emb) if keep is None else mod(h, emb, keep, p)
             return h
 
         def run_block(block, h, skip=None):
+            # the masks are inputs of the checkpointed block, so that a
+            # recompute under remat applies the same ones
+            keeps = [next(sites) for _ in block]
             if remat and torch.is_grad_enabled():
-                return checkpoint(run, block, h, emb, skip, use_reentrant=False)
-            return run(block, h, emb, skip)
+                return checkpoint(run, block, h, emb, skip, keeps, use_reentrant=False)
+            return run(block, h, emb, skip, keeps)
 
         h = x.to(cfg.torch_compute_dtype)
         hs = []

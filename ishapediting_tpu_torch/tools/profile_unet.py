@@ -1,7 +1,7 @@
-"""Where one chairs UNet forward (and one guided drag step) spends its
-device time, on one CUDA card.
+"""Where one chairs UNet forward (and one guided drag step, and one train
+step) spends its device time, on one CUDA card.
 
-    python -m ishapediting_tpu_torch.tools.profile_unet --batch 1 2 [--drag]
+    python -m ishapediting_tpu_torch.tools.profile_unet --batch 1 2 [--drag] [--train]
 
 For each batch size: the steady-state forward time (CUDA events), the
 device time of the kernels per forward and the device's idle share, each
@@ -12,6 +12,13 @@ limit first. ``--drag`` does the same for one drag step at batch 1
 (``edit/drag.py::make_drag_step``: the forward with its feature tap, the
 drag losses and ``torch.autograd.grad`` through the whole UNet, whose
 GroupNorm-SiLU and attention backward recompute the plain versions).
+``--train`` does the same for one train step at batch 8
+(``train/trainer.py::make_train_step``: the train forward with dropout
+under remat, the losses, the backward with every block recomputed, the
+gradient clip, AdamW and the EMA), and prints the device time spent inside
+the kernels' backward nodes (``GroupNormSiLUBackward``,
+``QKVAttentionBackward``: the plain versions' recompute and its gradient)
+and their share of the step's device time.
 
 The summed bound of a kernel is, over the launches of one forward as
 ``hopper_kernels.record_launches`` lists them (shapes recorded during the
@@ -28,6 +35,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ITERS = 5  # forwards per timing and per profile
+# autograd nodes of the kernels' Functions, whose backward recomputes the plain
+# versions; a trace names each node's call so (and its wrapper
+# "autograd::engine::evaluate_function: <node>", which holds the same kernels)
+BACKWARD_NODES = ("GroupNormSiLUBackward", "QKVAttentionBackward")
 KERNELS = {  # LAUNCHES key -> the CUDA kernel's name in a profiler trace (csrc/*.cu)
     "gn_stats": "gn_stats_kernel",
     "gn_norm": "gn_norm_kernel",
@@ -65,7 +76,12 @@ def kernel_accounting(fwd, iters: int = ITERS) -> dict:
                          for r in mine),
         )
     busy = sum(e.self_device_time_total for e in events) / 1e3 / iters
-    return dict(busy_ms=busy, kernels=out, events=events)
+    averages = prof.key_averages()
+    backward = {
+        node: sum(e.device_time_total for e in averages if e.key == node) / 1e3 / iters
+        for node in BACKWARD_NODES
+    }
+    return dict(busy_ms=busy, kernels=out, events=events, backward_ms=backward)
 
 
 def main(argv=None) -> None:
@@ -74,6 +90,8 @@ def main(argv=None) -> None:
     p.add_argument("--rows", type=int, default=15, help="kernel names to list")
     p.add_argument("--drag", action="store_true",
                    help="also profile one guided drag step at batch 1 (forward + backward)")
+    p.add_argument("--train", action="store_true",
+                   help="also profile one train step at batch 8 (forward, remat backward, AdamW, EMA)")
     p.add_argument("--no_cudnn_benchmark", action="store_true",
                    help="take cuDNN's heuristic algorithm choice instead of timing")
     args = p.parse_args(argv)
@@ -105,6 +123,8 @@ def main(argv=None) -> None:
         runs.append((f"batch {batch}: forward", fwd))
     if args.drag:
         runs.append(("batch 1: drag step", drag_step_fn(unet, cfg, gen, dev)))
+    if args.train:
+        runs.append(("batch 8: train step", train_step_fn(cfg, gen, dev)))
     for label, fn in runs:
         ms = cuda_ms(fn, ITERS)
         acc = kernel_accounting(fn)
@@ -114,6 +134,10 @@ def main(argv=None) -> None:
         for key, k in acc["kernels"].items():
             print(f"  {key}: {k['ms']:.4f} ms, {k['launches']} launches per call, "
                   f"summed bound {k['bound_ms']:.4f} ms")
+        for node, node_ms in acc["backward_ms"].items():
+            if node_ms:
+                print(f"  inside {node} nodes: {node_ms:.3f} ms per call, {node_ms / busy:.1%} of "
+                      f"the device time")
         events = sorted(acc["events"], key=lambda e: -e.self_device_time_total)
         for e in events[: args.rows]:
             print(f"  {e.self_device_time_total / 1e3 / ITERS:9.3f} ms "
@@ -138,6 +162,30 @@ def drag_step_fn(unet, cfg, gen, dev):
     step = make_drag_step(sched, lambda a, b: unet(a, b, feat_layer=e.feat_layer), problem,
                           scale=e.grad_scale, cof=e.mask_weight)
     return lambda: step(x, sched.num_timesteps // 2, origin, gen)
+
+
+
+def train_step_fn(cfg, gen, dev, batch: int = 8):
+    """One train step of the config's UNet at ``batch`` (its own fp32
+    master weights, AdamW with clip 1.0, EMA 0.9999, remat), on synthetic
+    latents and the same draws every call."""
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
+
+    with torch.device(dev):
+        model = init_unet_(UNetModel(cfg.unet), gen)
+    state = init_train_state(model, make_optimizer(model.parameters(), lr=1e-4, grad_clip=1.0))
+    sched = make_schedule(cfg.diffusion.base_steps, cfg.diffusion.noise_schedule, "")
+    step = make_train_step(cfg.unet, sched)
+    x = torch.randn((batch,) + cfg.latent_shape, generator=gen, device=dev).clamp(-1, 1)
+    draws = torch.Generator(device=dev)
+
+    def fn():
+        draws.manual_seed(0)
+        step(state, x, draws)
+
+    return fn
 
 
 if __name__ == "__main__":

@@ -81,12 +81,15 @@ PROFILER_ACTIVITIES = ("Buffer Flush", "Activity Buffer Request")
 
 
 def kernel_rows(prof):
-    """The rows of a ``torch.profiler`` run that are the program's kernels."""
+    """The rows of a ``torch.profiler`` run that are the program's kernels
+    (not the device-side copies of ``record_function`` ranges, such as
+    ``Optimizer.step#AdamW.step``, which span kernels counted already)."""
     from torch.autograd import DeviceType
 
     return [
         e for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.key not in PROFILER_ACTIVITIES
+        and not getattr(e, "is_user_annotation", False)
     ]
 
 
