@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation, editing and serving paths once on
-one NVIDIA card.
+"""Drive the PyTorch port's generation, editing, serving, training and
+evaluation paths once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --phases 2,7   # the build and some phases: no result line
@@ -45,7 +45,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    one 256^3 grid; then each kernel's device ms, launches and summed bound
    per chairs forward at batch 1 and 2
    (``tools/profile_unet.py::kernel_accounting``);
-   in every run of phases 3 to 7 the launch counters are reset just before
+   in every run of phases 3 to 8 the launch counters are reset just before
    it and read just after it, and each must equal the UNet forwards of that
    run times the kernel's calls per forward (a drag or fit step is one
    forward; its backward recomputes through the plain versions and launches
@@ -83,7 +83,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    and save/load seconds and decoder s/step printed; every train step
    launches the forward's kernels and, under remat, every block's again
    (141/141/32 per chairs step, exact);
-8. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+8. the remaining CLIs and host modules on the chairs engine of phase 4
+   (or one built alike): ``cli.decode`` of phase 4's DDIM triplane on the
+   card at 128^3 with ``--cross_section``, held to the same planes decoded
+   on the CPU (occupancy and mask equal except where |logit| < 1e-3, the
+   mesh of the same triangles), then at 256^3, timed; ``cli.eval`` pairs
+   mode on phase 4's ``cli.edit`` meshes, original and edited (chamfer,
+   hausdorff, IoU, local IoU around the handle of its EditLog);
+   ``solver_mesh_sweep`` on the chairs UNet with the base chain cut to 100
+   (budget 10, one seed: 220 forwards, four 256^3 meshes) and ``cli.eval
+   --solver_sweep --random_init --preset tiny`` (the generic kernel); the
+   GUI (``gui/app.py``) on the headless Open3D backend over a
+   ``DragEngine`` of phase 7's exported model dir (or one written with
+   random weights): select, create (20 steps), two picks through the
+   rendered depth, a 2-step drag, save mesh + EditLog and picture, its
+   meshes at 64^3; launches exact per run; ``--phases 8`` runs alone (on
+   DDIM-10 samples of its own engine, decoded and evaluated in pairs);
+9. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA card is present or when the
@@ -94,6 +110,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -102,6 +119,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -109,6 +127,10 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
+# what phases 4 and 7 leave for phase 8 (which makes its own when they did not run)
+KEPT_TRIPLANES = os.path.join(WORK, "kept_triplanes")  # cli.generate's DDIM samples
+KEPT_EDIT = os.path.join(WORK, "kept_edit")  # cli.edit's original.obj, edit00.obj and EditLog
+KEPT_MODELS = os.path.join(WORK, "kept_models")  # cli.train's exported model dir
 TIME_LIMIT_S = 1100  # the run must end well inside 1200 s, build included
 
 TPU_KERNELS = {
@@ -592,7 +614,7 @@ def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", 
 
 
 def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
-            preset_name="chairs", device="cuda", res=256):
+            preset_name="chairs", device="cuda", res=256, keep=False):
     import numpy as np
 
     from ishapediting_tpu_torch.cli.generate import main as generate
@@ -628,6 +650,8 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
         if not os.path.exists(obj) or os.path.getsize(obj) == 0:
             fail(f"{phase}: mesh {i} is missing or empty")
     size_mb = sum(os.path.getsize(os.path.join(out, "objects", f"{i}.obj")) for i in range(2)) / 1e6
+    if keep and phase == "ddim":  # phase 8 decodes these planes again
+        shutil.copytree(os.path.join(out, "triplanes"), KEPT_TRIPLANES, dirs_exist_ok=True)
     shutil.rmtree(out)  # the 256^3 meshes of random weights are large
     say(f"  {phase}: sampling {sample_s:.3f} s for 2 samples ({2 / sample_s:.3f} samples/s, "
         f"first run, launch overheads included), decode+mesh+write {decode_s:.3f} s, "
@@ -794,7 +818,7 @@ def engine_steps(cfg) -> int:
 
 
 def run_cli_edit(hk, counter, per_fwd, totals, preset_name="chairs", num_steps=200,
-                 edit_steps=10, device="cuda") -> float:
+                 edit_steps=10, device="cuda", keep=False) -> float:
     """``cli.edit`` at chairs width: 200-step generation (w_time 170), one
     handle, a 10-step fast drag, original and edited 256^3 meshes."""
     from ishapediting_tpu_torch.cli.edit import main as edit_main
@@ -821,7 +845,10 @@ def run_cli_edit(hk, counter, per_fwd, totals, preset_name="chairs", num_steps=2
     if not np.isfinite(engine.edited_latent).all():
         fail("cli.edit: edited latent not finite")
     size_mb = sum(os.path.getsize(os.path.join(out, f)) for f in ("original.obj", "edit00.obj")) / 1e6
-    shutil.rmtree(out)
+    if keep:  # phase 8's cli.eval compares the two meshes around the EditLog's handle
+        os.replace(out, KEPT_EDIT)
+    else:
+        shutil.rmtree(out)
     say(f"  cli.edit: seed -> edited mesh {wall:.1f} s (200 generation steps, 10 guided steps, "
         f"two 256^3 meshes, {size_mb:.0f} MB of OBJ), drag walls "
         f"{fmt_walls(engine.last_phase_walls)}, edited mesh walls {fmt_walls(engine.last_mesh_walls)}")
@@ -1545,7 +1572,7 @@ def parse_ckpt(log: str, what: str) -> tuple:
     fail(f"cli.train: no checkpoint line for {what} in its output")
 
 
-def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", device="cuda") -> dict:
+def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", device="cuda", keep=False) -> dict:
     """``cli.train`` at the published chairs width (421M parameters, bf16
     torso, dropout 0.1, the 1000-step chain, AdamW lr 1e-4, clip 1.0, EMA
     0.9999, remat), batch 8 of synthetic 128x128x96 latents: 4 steps with a
@@ -1655,8 +1682,12 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
     say(f"  train -> serve: DragEngine.from_model_dir {load_s:.2f} s (EMA weights), "
         f"update_latent_params {wall:.2f} s (20 steps, 64^3 mesh), latent finite")
     out.update(serve_load_s=load_s, serve_update_latent_params_s=wall)
-    for d in (ckpt, export):
-        shutil.rmtree(d)
+    shutil.rmtree(ckpt)
+    if keep:  # phase 8's GUI serves it
+        os.makedirs(KEPT_MODELS)
+        shutil.move(export, os.path.join(KEPT_MODELS, "chairs_trained"))
+    else:
+        shutil.rmtree(export)
     return out
 
 
@@ -1707,7 +1738,7 @@ def overfit_check(hk, counter, totals, device="cuda") -> dict:
     return dict(first5=first, last5=last, s_per_step=wall / steps)
 
 
-def training_runs(hk, counter, totals, card, device="cuda", preset_name="chairs") -> dict:
+def training_runs(hk, counter, totals, card, device="cuda", preset_name="chairs", keep=False) -> dict:
     """Phase 7: the train step card against CPU, remat against no remat,
     decoder training, ``cli.train`` at chairs width -> serve, and a small
     overfit; the training numbers printed beside the card."""
@@ -1721,7 +1752,7 @@ def training_runs(hk, counter, totals, card, device="cuda", preset_name="chairs"
     }}
     out["remat"] = remat_check(hk, dataclasses.replace(preset("tiny").unet, dropout=0.1), device)
     decoder_pt, out["decoder"] = sphere_decoder(hk, device)
-    out["chairs"] = chairs_training(hk, counter, totals, decoder_pt, preset_name, device)
+    out["chairs"] = chairs_training(hk, counter, totals, decoder_pt, preset_name, device, keep)
     out["overfit"] = overfit_check(hk, counter, totals, device)
     c = out["chairs"]
     steady = float(np.mean(c["steady_s"]))
@@ -1730,6 +1761,428 @@ def training_runs(hk, counter, totals, card, device="cuda", preset_name="chairs"
         f"with cuDNN's algorithm search, {c['resumed_peak_gib']:.2f} GiB in the resumed run, "
         f"checkpoint {c['ckpt_bytes'] / 1e9:.3f} GB saved in {c['save_s']} s, loaded in {c['load_s']} s; "
         f"decoder {out['decoder']['s_per_step'] * 1e3:.2f} ms/step")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the remaining CLIs and host modules
+# ---------------------------------------------------------------------------
+
+CHECK_RES = 128  # cli.decode held to the CPU: the grid the CPU decodes in about a second
+MESH_RES = 256  # cli.decode timed, the solver sweep's meshes: the published grid
+GUI_RES = 64  # the GUI's meshes only: the NumPy renderer draws each at every pick and save
+
+
+def mesh_match(a, b, differ: np.ndarray, res: int, device="cuda") -> np.ndarray:
+    """For each triangle of ``a`` (a unit-cube mesh marched at ``res``^3)
+    whose cell lies more than two cells from every voxel of ``differ``, its
+    distance to ``b``: the least, over the four triangles of ``b`` with the
+    nearest centroids, of the largest coordinate difference between a vertex
+    of one triangle and the nearest vertex of the other (so winding and
+    vertex order do not count). The differences are taken on ``device``."""
+    from scipy.spatial import cKDTree
+
+    ta, tb = a.vertices[a.triangles], b.vertices[b.triangles]
+    ca = ta.mean(axis=1)
+    bad = np.argwhere(differ)
+    if len(bad):  # a voxel is a corner of the cells one below it and its own
+        far = cKDTree(bad).query(np.floor((ca + 1) / 2 * res), p=np.inf, workers=-1)[0] > 2
+        ta, ca = ta[far], ca[far]
+    idx = torch.from_numpy(cKDTree(tb.mean(axis=1)).query(ca, k=4, workers=-1)[1]).to(device)
+    ta = torch.from_numpy(ta).to(device)
+    cand = torch.from_numpy(tb).to(device)[idx]  # [n, 4, 3, 3]
+    d = (ta[:, None, :, None] - cand[:, :, None]).abs().amax(-1)  # [n, 4, 3 of a, 3 of b]
+    return torch.maximum(d.amin(-1).amax(-1), d.amin(-2).amax(-1)).amin(-1).cpu().numpy()
+
+
+def phase8_inputs(engine) -> tuple:
+    """The triplane .npy files to decode ([96,128,128], physical scale), the
+    decoder that goes with them as a .pt, the mesh pair to evaluate (None:
+    the decoded meshes) and its EditLog: phase 4's (cli.generate's first
+    DDIM sample, which decodes with the engine's decoder, the same seed and
+    preset; cli.edit's original and edited meshes), else DDIM-10 samples of
+    this engine at batch 2 and an EditLog written here."""
+    from ishapediting_tpu_torch.cli.edit import write_edit_log
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.edit.fit import latents_to_planes
+    from ishapediting_tpu_torch.parallel.sampling import sample_batches
+
+    d = os.path.join(WORK, "host_modules")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    dec_pt = os.path.join(d, "chairs_decoder.pt")
+    torch.save(engine.decoder.state_dict(), dec_pt)
+    if os.path.isdir(KEPT_TRIPLANES) and os.path.isdir(KEPT_EDIT):
+        pair = [os.path.join(KEPT_EDIT, f) for f in ("original.obj", "edit00.obj")]
+        planes = [os.path.join(KEPT_TRIPLANES, "0.npy")]
+        return d, dec_pt, planes, pair, os.path.join(KEPT_EDIT, "EditLog"), "phase 4's"
+    cfg = engine.config
+    h, w, c = cfg.latent_shape
+    sched = make_schedule(cfg.diffusion.base_steps, cfg.diffusion.noise_schedule, "ddim10").to(engine.device)
+    lat = sample_batches(sched, engine.model_fn(), num_samples=2, batch_size=2, latent_shape=cfg.latent_shape,
+                         device=engine.device, sampler="ddim")
+    tri = latents_to_planes(torch.from_numpy(lat).to(engine.device), engine.half_range, engine.middle)
+    planes = []
+    for i in range(2):  # [3, H, W, C/3] -> the [C, H, W] of cli.generate
+        planes.append(os.path.join(d, f"{i}.npy"))
+        np.save(planes[-1], tri[i].permute(0, 3, 1, 2).reshape(c, h, w).cpu().numpy())
+    log = os.path.join(d, "EditLog")
+    write_edit_log(log, "00", np.array([[0.5, 0.0, 0.0]]), np.array([[0.6, 0.0, 0.0]]), 600.0, 0.2)
+    return d, dec_pt, planes, None, log, "DDIM-10 samples of this engine"
+
+
+def decode_runs(engine, d, dec_pt, planes, device="cuda") -> tuple:
+    """``cli.decode`` on the card: the first planes at 128^3 with
+    ``--cross_section``, held to the same planes decoded on the CPU by the
+    plain path: the grid the CLI marched has the CPU's occupancy except at
+    voxels where |logit| < 1e-3; the CLI's mesh has the CPU mesh's
+    triangles (up to vertex order, vertices by the stated quantile) outside
+    the cells next to those voxels; the mask is the CPU's except where
+    |logit| < 1e-3. Then every input at 256^3, timed. Returns (numbers, the
+    256^3 OBJ paths)."""
+    import copy
+
+    from ishapediting_tpu_torch import compat
+    from ishapediting_tpu_torch.cli.decode import main as decode_main
+    from ishapediting_tpu_torch.geometry.marching import grid_to_mesh
+    from ishapediting_tpu_torch.geometry.render import read_png
+    from ishapediting_tpu_torch.io.planes import load_planes
+    from ishapediting_tpu_torch.ops.triplane import decode_points_chunked
+
+    out = {}
+    marched = []  # (grid, mesh) of each march inside cli.decode's create_obj
+
+    def march(grid, *args, **kwargs):
+        mesh = grid_to_mesh(grid, *args, **kwargs)
+        marched.append((grid, mesh))
+        return mesh
+
+    argv = ["--input", planes[0], "--output", os.path.join(d, f"d{CHECK_RES}.obj"), "--res", str(CHECK_RES),
+            "--model_path", dec_pt, "--cross_section", os.path.join(d, f"cs{CHECK_RES}.png"), "--device", device]
+    say(f"  python -m ishapediting_tpu_torch.cli.decode {' '.join(argv)}")
+    buf = io.StringIO()
+    compat.grid_to_mesh = march
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            (card_mesh,) = decode_main(argv)
+        out["decode_check_wall_s"] = time.perf_counter() - t0
+    finally:
+        compat.grid_to_mesh = grid_to_mesh
+    ((card_grid, marched_mesh),) = marched
+    if marched_mesh is not card_mesh:
+        fail("cli.decode: the mesh it returned is not the one create_obj marched")
+    nhwc = load_planes(planes[0])
+    cpu_dec = copy.deepcopy(engine.decoder).cpu()
+    t0 = time.perf_counter()
+    cpu_grid = compat.decode_occupancy_grid(cpu_dec, nhwc, CHECK_RES)
+    cpu_mesh = grid_to_mesh(cpu_grid)  # create_obj's march
+    with torch.no_grad():  # cross_section's points
+        logits = decode_points_chunked(cpu_dec, torch.from_numpy(nhwc),
+                                       torch.from_numpy(compat.cross_section_coords(CHECK_RES)))
+    logits = logits.reshape(CHECK_RES, CHECK_RES).numpy()
+    out["cpu_decode_check_s"] = time.perf_counter() - t0
+    differ = (card_grid > 0) != (cpu_grid > 0)
+    worst = float(np.abs(cpu_grid[differ]).max()) if differ.any() else 0.0
+    out.update(grid_max_abs_diff=float(np.abs(card_grid - cpu_grid).max()), voxels_differ=int(differ.sum()),
+               inside_share=float((cpu_grid > 0).mean()))
+    if worst >= 1e-3:
+        fail(f"cli.decode: card and CPU occupancy differ at a voxel with |logit| {worst:.3g} >= 1e-3")
+    if len(card_mesh.triangles) == 0:
+        fail(f"cli.decode: empty mesh at {CHECK_RES}^3")
+    t0 = time.perf_counter()
+    moved = [mesh_match(card_mesh, cpu_mesh, differ, CHECK_RES, device),
+             mesh_match(cpu_mesh, card_mesh, differ, CHECK_RES, device)]
+    out["mesh_match_s"] = time.perf_counter() - t0
+    out["triangles_compared"] = [len(m) for m in moved]
+    out["triangles_set_aside"] = [len(card_mesh.triangles) - len(moved[0]), len(cpu_mesh.triangles) - len(moved[1])]
+    moved = np.concatenate(moved)
+    out.update(mesh_moved_q999=float(np.quantile(moved, 0.999)), mesh_moved_max=float(moved.max()))
+    say(f"  cli.decode {CHECK_RES}^3 on the card against the CPU: grids differ by {out['grid_max_abs_diff']:.3g} "
+        f"at most, occupancy differs at {out['voxels_differ']} voxels (largest |logit| there {worst:.3g}), "
+        f"{out['inside_share']:.4f} of the grid inside; meshes {len(card_mesh.triangles)}/"
+        f"{len(cpu_mesh.triangles)} triangles, {out['triangles_compared']} compared away from those voxels "
+        f"({out['triangles_set_aside']} set aside), vertices apart by {out['mesh_moved_q999']:.3g} at the "
+        f"0.999 quantile, {out['mesh_moved_max']:.3g} at most ({out['mesh_match_s']:.1f} s); wall "
+        f"{out['decode_check_wall_s']:.2f} s, CPU {out['cpu_decode_check_s']:.2f} s")
+    if out["mesh_moved_q999"] >= 2e-3 or out["mesh_moved_max"] >= 2 / CHECK_RES:
+        fail(f"cli.decode: the card's {CHECK_RES}^3 mesh is not the CPU's away from the voxels that differ")
+    mask = read_png(os.path.join(d, f"cs{CHECK_RES}.png"))[:, :, 0] > 0
+    mdiff = mask != (logits > 0)
+    say(f"  cross-section {CHECK_RES}^2: {int(mdiff.sum())} pixels differ from the CPU's, {mask.mean():.4f} inside")
+    if mdiff.any() and np.abs(logits[mdiff]).max() >= 1e-3:
+        fail("cli.decode: the cross-section differs from the CPU's where |logit| >= 1e-3")
+
+    outdir = os.path.join(d, "meshes")
+    os.makedirs(outdir)
+    argv = ["--input", *planes, "--output", outdir, "--res", str(MESH_RES), "--model_path", dec_pt,
+            "--device", device]
+    say(f"  python -m ishapediting_tpu_torch.cli.decode {' '.join(argv)}")
+    buf = io.StringIO()
+    sync()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        meshes = decode_main(argv)
+    out["decode_wall_s"] = time.perf_counter() - t0
+    out["decode_s_each"] = [float(l.rsplit(", ", 1)[1].rstrip("s)")) for l in buf.getvalue().splitlines()
+                            if " -> " in l]
+    out["decode_triangles"] = [len(m.triangles) for m in meshes]
+    for i, m in enumerate(meshes):
+        check_mesh(f"cli.decode {MESH_RES}^3 #{i}", m)
+    say(f"  cli.decode {MESH_RES}^3 of {len(planes)} input(s): {out['decode_s_each']} s each (decode on the card, "
+        f"march, OBJ write), {out['decode_triangles']} triangles, wall {out['decode_wall_s']:.1f} s")
+    return out, [os.path.join(outdir, os.path.splitext(os.path.basename(p))[0] + ".obj") for p in planes]
+
+
+def eval_runs(d, pair, edit_log) -> dict:
+    """``cli.eval`` pairs mode on two 256^3 meshes of random weights:
+    chamfer, hausdorff, IoU, and local IoU around the EditLog's handles."""
+    from ishapediting_tpu_torch.cli.eval import main as eval_main
+
+    a, b = pair
+    argv = ["--mesh_a", a, "--mesh_b", b, "--metrics", "chamfer", "hausdorff", "iou", "local",
+            "--edit_log", edit_log, "--out", os.path.join(d, "eval.json")]
+    say(f"  python -m ishapediting_tpu_torch.cli.eval {' '.join(argv)}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rows, summary = eval_main(argv)
+    wall = time.perf_counter() - t0
+    row = rows[0]
+    ok = (all(np.isfinite(row[k]) for k in ("chamfer", "hausdorff", "iou", "local_iou"))
+          and 0 <= row["iou"] <= 1 and 0 <= row["local_iou"] <= 1 and row["chamfer"] > 0
+          and json.load(open(os.path.join(d, "eval.json")))["summary"] == summary)
+    say(f"  cli.eval pair (two meshes of {os.path.getsize(a) / 1e9:.2f} and {os.path.getsize(b) / 1e9:.2f} GB "
+        f"of OBJ, 100,000 points): " + json.dumps({k: v for k, v in row.items() if not k.startswith("mesh")})
+        + f", wall {wall:.1f} s")
+    if not ok:
+        fail("cli.eval: a metric is not finite, out of range, or the report differs")
+    return dict(eval_pair_wall_s=wall, **{k: v for k, v in row.items() if not k.startswith("mesh")})
+
+
+def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
+    """``solver_mesh_sweep`` on the chairs UNet and decoder (base chain cut
+    to 100: the dense DDIM reference, ddpm100, ddim10, dpm10; 220 forwards
+    at batch 1, four 256^3 meshes); then ``cli.eval --solver_sweep
+    --random_init --preset tiny`` on the card (fp32: the generic attention
+    kernel). Launches exact per run."""
+    from ishapediting_tpu_torch.cli.eval import main as eval_main
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.core.solver_eval import solver_mesh_sweep
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+
+    cfg = engine.config
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, base_steps=100),
+                              edit=dataclasses.replace(cfg.edit, shape_resolution=MESH_RES))
+    sweep_engine = DragEngine(cfg, unet=engine.unet, decoder=engine.decoder, stats=engine.stats, device=device)
+    say("  solver_mesh_sweep(chairs, base chain 100, budgets (10,), 1 seed, max_attempts 1)")
+    walls = []
+    get_mesh = sweep_engine.get_mesh
+
+    def timed_mesh(latent):
+        t0 = time.perf_counter()
+        m = get_mesh(latent)
+        walls.append(time.perf_counter() - t0)
+        return m
+
+    sweep_engine.get_mesh = timed_mesh
+    report, wall, _ = counted(hk, counter, per_fwd, totals, "solver sweep (chairs)",
+                              lambda: solver_mesh_sweep(sweep_engine, n_seeds=1, budgets=(10,), max_attempts=1),
+                              220)
+    out = {"chairs_sweep_wall_s": wall, "chairs_sweep_mesh_s": walls, "chairs_sweep": report}
+    ok = (report["seeds"] == 1 and all(report[k]["empty"] == 0 and np.isfinite(report[k]["cd_mean"])
+                                       for k in ("ddpm100", "ddim10", "dpm10")))
+    say(f"  solver sweep (chairs): {json.dumps(report)}; mesh walls {[round(w, 2) for w in walls]} s, "
+        f"wall {wall:.1f} s")
+    if not ok:
+        fail("solver sweep (chairs): an empty reference or solver mesh, or a non-finite distance")
+
+    argv = ["--solver_sweep", "--random_init", "--preset", "tiny", "--budgets", "10", "5", "--sweep_seeds", "1",
+            "--max_attempts", "1", "--point_num", "5000", "--out", os.path.join(WORK, "sweep_tiny.json"),
+            "--device", device]
+    say(f"  python -m ishapediting_tpu_torch.cli.eval {' '.join(argv)}")
+    buf = io.StringIO()
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        tiny = eval_main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    forwards = 100 + 130 * tiny["seeds"]  # the reference chain, then per seed 100 + 10 + 10 + 5 + 5
+    if counter.n != forwards:
+        fail(f"cli.eval --solver_sweep tiny: {counter.n} UNet forwards, expected {forwards}")
+    check_counts(hk, "cli.eval --solver_sweep (tiny)", forwards, kernel_calls_per_forward(preset("tiny").unet),
+                 totals, attn_kernel="attention_generic")
+    say(f"  cli.eval --solver_sweep (tiny, on the card): {json.dumps(tiny)}, wall {wall:.1f} s")
+    if tiny["ref"] != "ddim100-dense" or not {"ddpm100", "ddim10", "dpm10", "ddim5", "dpm5"} <= tiny.keys():
+        fail("cli.eval --solver_sweep tiny: report keys not as expected")
+    out.update(tiny_sweep_wall_s=wall, tiny_sweep=tiny)
+    return out
+
+
+class _SyncThread:
+    """``threading.Thread`` for the GUI's workers, run in the calling thread,
+    so that each button's work is over when ``click`` returns."""
+
+    def __init__(self, target=None, daemon=None, args=(), kwargs=None):
+        self._target, self._args, self._kwargs = target, args, kwargs or {}
+
+    def start(self):
+        self._target(*self._args, **self._kwargs)
+
+
+def gui_runs(hk, counter, totals, engine, per_fwd, dec_pt, device="cuda") -> dict:
+    """The GUI over ``DragEngine`` on the headless Open3D backend, on the
+    card: select a model (phase 7's exported one, else random weights
+    written here in the reference's layout), create a mesh (20 steps, w_time
+    10, the seed 0), pick a source and a target by clicks on the rendered
+    depth, drag (2 guided steps: forward through the kernels, backward
+    through their autograd Functions), save the mesh with its EditLog and
+    the picture. The engine keeps the chairs edit config (its 256^3 voxel
+    spacing sets the drag's handle patches); only the meshes it hands the
+    GUI are marched at 64^3 (GUI_RES)."""
+    from ishapediting_tpu_torch.cli.edit import parse_edit_log
+    from ishapediting_tpu_torch.cli.train import export_model_dir
+    from ishapediting_tpu_torch.geometry.render import read_png
+    from ishapediting_tpu_torch.gui.headless import SyntheticMouseEvent, install_headless_open3d
+
+    install_headless_open3d()
+    import ishapediting_tpu_torch.gui.app as gui_app
+
+    if gui_app.o3d.geometry.TriangleMesh.__module__ != "ishapediting_tpu_torch.gui.headless":
+        fail("GUI: the app did not bind the port's headless backend")
+    gui_app.threading = types.SimpleNamespace(Thread=_SyncThread)  # this module's workers only
+    if not os.path.isdir(KEPT_MODELS):
+        os.makedirs(KEPT_MODELS)
+        export_model_dir(os.path.join(KEPT_MODELS, "chairs_random"), engine.unet.state_dict(), 0, "chairs",
+                         decoder_from=dec_pt, channels=engine.config.latent_shape[-1],
+                         plane_channels=engine.config.plane_channels)
+    (name,) = os.listdir(KEPT_MODELS)
+    app = gui_app.App(models_root=KEPT_MODELS, device=device, config=engine.config)
+    out = {}
+    t0 = time.perf_counter()
+    app._model_combo.on_selection_changed(name, 0)
+    out["select_model_s"] = time.perf_counter() - t0
+    if app._status.text != f"{name} loaded" or app.engine.device.type != device:
+        fail(f"GUI: selecting {name} left the status {app._status.text!r}")
+    app.engine.get_mesh = functools.partial(app.engine.get_mesh, res=GUI_RES)
+    app._latent_edit.text_value = "0"
+    _, out["create_mesh_s"], _ = counted(hk, counter, per_fwd, totals, "GUI create mesh",
+                                         app._create_btn.click, 20)
+    if app._status.text != "mesh created":
+        fail(f"GUI create: status {app._status.text!r}")
+    created = app.mesh
+    check_mesh("GUI create mesh", created, app.engine.last_mesh_walls)
+
+    # two clicks on the rendered surface: near the image center, and 40 px right of it
+    scene = app._scene.scene
+    t0 = time.perf_counter()
+    _, depth = scene.render()
+    out["render_s"] = time.perf_counter() - t0
+    hit = np.argwhere(depth < 1.0)
+    if len(hit) == 0:
+        fail("GUI: the created mesh is not in the rendered view")
+    h, w = depth.shape
+    clicks = []
+    for target in ((h / 2, w / 2), (h / 2, w / 2 + 40)):
+        y, x = hit[np.argmin(np.abs(hit - np.array(target)).sum(axis=1))]
+        clicks.append((int(x), int(y)))
+    t0 = time.perf_counter()
+    for x, y in clicks:
+        if app._mouse_event(SyntheticMouseEvent(x=x, y=y)) != gui_app.gui.Widget.EventCallbackResult.HANDLED:
+            fail("GUI: a ctrl-click was not handled")
+    out["two_picks_s"] = time.perf_counter() - t0
+    if len(app.source_pnt) != 1 or len(app.target_pnt) != 1:
+        fail(f"GUI: picks gave {len(app.source_pnt)} sources and {len(app.target_pnt)} targets")
+    on_mesh = [np.abs(created.vertices - p).sum(axis=1).min() for p in app.source_pnt + app.target_pnt]
+    if max(on_mesh) != 0.0:
+        fail("GUI: a picked point is not a vertex of the mesh")
+    say(f"  GUI: picks at pixels {clicks} -> source {np.round(app.source_pnt[0], 4).tolist()}, target "
+        f"{np.round(app.target_pnt[0], 4).tolist()} ({out['two_picks_s']:.1f} s for two picks; one render "
+        f"of the {len(created.triangles)}-triangle scene {out['render_s']:.1f} s)")
+
+    app._edit_steps_edit.text_value = "2"
+    _, out["drag_s"], _ = counted(hk, counter, per_fwd, totals, "GUI drag (2 guided steps)",
+                                  app._start_btn.click, 2)
+    if not app._status.text.startswith("edit done (motion loss "):
+        fail(f"GUI drag: status {app._status.text!r}")
+    dragged = app.mesh
+    check_mesh("GUI drag", dragged, app.engine.last_mesh_walls)
+    if len(dragged.vertices) == len(created.vertices) and np.array_equal(dragged.vertices, created.vertices):
+        fail("GUI drag: the dragged mesh is the created one")
+
+    gdir = os.path.join(WORK, "gui")
+    shutil.rmtree(gdir, ignore_errors=True)
+    os.makedirs(gdir)
+    t0 = time.perf_counter()
+    app._save_mesh_btn.click()
+    app.window.dialog.on_done(os.path.join(gdir, "edited.obj"))
+    out["save_mesh_s"] = time.perf_counter() - t0
+    edits = parse_edit_log(os.path.join(gdir, "EditLog"))
+    if (list(edits) != ["01"] or not np.allclose(edits["01"]["sources"], app.source_pnt[0], atol=1e-6)
+            or not np.allclose(edits["01"]["targets"], app.target_pnt[0], atol=1e-6)
+            or os.path.getsize(os.path.join(gdir, "edited.obj")) == 0):
+        fail(f"GUI save mesh: EditLog {edits} or the OBJ not as expected")
+    t0 = time.perf_counter()
+    app._save_pic_btn.click()
+    app.window.dialog.on_done(os.path.join(gdir, "shot.png"))
+    out["save_picture_s"] = time.perf_counter() - t0
+    img = read_png(os.path.join(gdir, "shot.png"))
+    white = (img == 255).all(axis=2)
+    if img.shape != (480, 640, 3) or white.all() or not white[0, 0] or not white[-1, -1]:
+        fail("GUI save picture: the PNG is empty or its background is not white")
+    out.update(model=name, mesh_res=GUI_RES, edit_shape_resolution=app.engine.config.edit.shape_resolution,
+               created_triangles=len(created.triangles),
+               dragged_triangles=len(dragged.triangles), picture_surface_share=float(1 - white.mean()),
+               status=app._status.text)
+    say(f"  GUI on the card: select {out['select_model_s']:.1f} s, create {out['create_mesh_s']:.1f} s, "
+        f"drag {out['drag_s']:.1f} s, save mesh {out['save_mesh_s']:.1f} s, save picture "
+        f"{out['save_picture_s']:.1f} s; {app._status.text}")
+    shutil.rmtree(gdir)
+    return out
+
+
+def host_module_runs(hk, counter, totals, mp=None, device="cuda", preset_name="chairs") -> dict:
+    """Phase 8 on phase 4's chairs engine where it ran, else on one built
+    here (random weights from the seed 0, the same as phase 4's)."""
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+
+    if mp is not None:
+        engine, per_fwd = mp["engine"], mp["per_fwd"]
+    else:
+        chairs = preset(preset_name, 20)
+        chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
+            chairs.edit, w_time=10, feat_layer=chairs.edit.feat_layer if preset_name == "tiny" else 8))
+        engine, per_fwd = DragEngine(chairs, seed=0, device=device), kernel_calls_per_forward(chairs.unet)
+    t_all = time.perf_counter()
+    d, dec_pt, planes, pair, edit_log, source = phase8_inputs(engine)
+    say(f"  inputs: {source} triplanes {[os.path.relpath(p, ROOT) for p in planes]}, meshes and EditLog")
+    out = {"inputs": source}
+    t0 = time.perf_counter()
+    numbers, decoded = decode_runs(engine, d, dec_pt, planes, device)
+    out.update(numbers)
+    out["decode_phase_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.update(eval_runs(d, pair or decoded, edit_log))
+    out["eval_wall_s"] = time.perf_counter() - t0
+    for path in decoded + (pair or []):  # OBJs of random weights at 256^3 are large
+        os.remove(path)
+    t0 = time.perf_counter()
+    out.update(sweep_runs(hk, counter, totals, engine, per_fwd, device))
+    out["sweep_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["gui"] = gui_runs(hk, counter, totals, engine, per_fwd, dec_pt, device)
+    out["gui_wall_s"] = time.perf_counter() - t0
+    out["phase_wall_s"] = time.perf_counter() - t_all
+    for kept in (d, KEPT_TRIPLANES, KEPT_EDIT, KEPT_MODELS):
+        shutil.rmtree(kept, ignore_errors=True)
+    say(f"  phase 8: decode {out['decode_phase_wall_s']:.1f} s, eval {out['eval_wall_s']:.1f} s, sweeps "
+        f"{out['sweep_wall_s']:.1f} s, GUI {out['gui_wall_s']:.1f} s; {out['phase_wall_s']:.1f} s in all")
     return out
 
 
@@ -1752,7 +2205,7 @@ def card_phase(hk, dev, counter, totals) -> dict:
     return edit_gate_on_card(hk, counter, totals)
 
 
-def main_path(hk, counter, totals) -> dict:
+def main_path(hk, counter, totals, keep=False) -> dict:
     """Phase 4: the main path at the published chairs width."""
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
@@ -1763,7 +2216,7 @@ def main_path(hk, counter, totals) -> dict:
     chairs = preset("chairs", 20)
     per_fwd = kernel_calls_per_forward(chairs.unet)
     say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
-    ddim_s = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim")
+    ddim_s = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim", keep=keep)
     run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
     chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
         chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
@@ -1773,7 +2226,7 @@ def main_path(hk, counter, totals) -> dict:
     edits = chairs_edit_runs(hk, counter, per_fwd, totals, engine, lat)
     say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
         f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
-    edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals)
+    edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals, keep=keep)
     return dict(chairs=chairs, per_fwd=per_fwd, ddim_s=ddim_s, engine=engine, lat=lat,
                 first_mesh=first_mesh, edits=edits)
 
@@ -1782,7 +2235,7 @@ def main() -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description="Drive the port once on one CUDA card")
-    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7",
+    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8",
                         help="phases to run after the build (a partial run prints no result line)")
     phases = {int(p) for p in parser.parse_args().phases.split(",")}
     if 5 in phases and 4 not in phases:
@@ -1819,6 +2272,8 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     set_cuda_flags()
     os.makedirs(WORK, exist_ok=True)
+    for kept in (KEPT_TRIPLANES, KEPT_EDIT, KEPT_MODELS):
+        shutil.rmtree(kept, ignore_errors=True)
 
     report = {}
     if 2 in phases:
@@ -1829,7 +2284,7 @@ def main() -> None:
     if 3 in phases:
         gate = card_phase(hk, dev, counter, totals)
     if 4 in phases:
-        mp = main_path(hk, counter, totals)
+        mp = main_path(hk, counter, totals, keep=8 in phases)
         engine, lat, edits = mp["engine"], mp["lat"], mp["edits"]
     if 5 in phases:
         say("[5] serving surfaces on the chairs engine (direct fit, morph, cli.morph, cli.batch_edit, "
@@ -1842,9 +2297,14 @@ def main() -> None:
     if 7 in phases:
         say("[7] training: a train step card against CPU, remat against no remat, decoder training, "
             "cli.train at chairs width (batch 8, checkpoint, resume, export) -> serve, an overfit")
-        training = training_runs(hk, counter, totals, card)
+        training = training_runs(hk, counter, totals, card, keep=8 in phases)
+    if 8 in phases:
+        say("[8] the remaining CLIs and host modules: cli.decode (card against CPU at 128^3, then 256^3), "
+            "cli.eval on cli.edit's two 256^3 meshes, the solver sweep (chairs, then cli.eval "
+            "--solver_sweep tiny), the headless GUI over DragEngine (create, pick, drag, save)")
+        host = host_module_runs(hk, counter, totals, mp if 4 in phases else None)
     counter.close()
-    if phases != {2, 3, 4, 5, 6, 7}:
+    if phases != {2, 3, 4, 5, 6, 7, 8}:
         say(f"partial run (phases {sorted(phases)}): total {time.perf_counter() - t_start:.1f} s; "
             f"launches {totals}; no result line")
         return
@@ -1878,6 +2338,7 @@ def main() -> None:
     say("heads-by-count: " + json.dumps({k: v for k, v in hbc.items() if k != "per_forward"},
                                         default=float))
     say("training: " + json.dumps(training, default=float))
+    say("host modules: " + json.dumps(host, default=float))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

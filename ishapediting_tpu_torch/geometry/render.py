@@ -175,6 +175,30 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def read_png(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of a PNG as ``write_png`` writes it (8-bit RGB, no
+    interlace, filter 0 on every row); raises ``ValueError`` on any other."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    if header is None or header[2:] != (8, 2, 0, 0, 0):
+        raise ValueError(f"{path}: not an 8-bit RGB PNG without interlace")
+    w, h = header[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: a row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
 def render_mesh(
     mesh: TriMesh,
     size: int = 512,

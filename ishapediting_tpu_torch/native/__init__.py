@@ -1,5 +1,5 @@
-"""Native C++ host geometry (marching tetrahedra, smoothing, OBJ writer,
-point-in-mesh occupancy).
+"""Native C++ host geometry (marching tetrahedra, smoothing, OBJ writer and
+reader, point-in-mesh occupancy).
 
 The library builds with g++ at first use into ``build/native/`` at the root
 of the checkout (a directory ``.gitignore`` lists), never into the package.
@@ -58,6 +58,11 @@ def get_lib() -> ctypes.CDLL:
         lib.smooth_simple.argtypes = [dp, ll, lp, ll, ll, dp]
         lib.write_obj.restype = ll
         lib.write_obj.argtypes = [ctypes.c_char_p, dp, ll, lp, ll]
+        lib.read_obj.restype = ll
+        lib.read_obj.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(dp), ctypes.POINTER(lp),
+            ctypes.POINTER(ll), ctypes.POINTER(ll),
+        ]
         lib.points_occupancy.restype = None
         lib.points_occupancy.argtypes = [dp, ll, lp, ll, dp, ll, dp]
         _lib = lib
@@ -118,6 +123,33 @@ def native_write_obj(vertices: np.ndarray, triangles: np.ndarray, path: str) -> 
     )
     if rc != 0:
         raise OSError(f"native write_obj failed (rc={rc}): {path}")
+
+
+def native_read_obj(path: str):
+    """C++ ascii OBJ reader -> ([V, 3] f64 vertices, [F, 3] int64 triangles):
+    "v" and "f" lines, first index of each face token, polygons
+    fan-triangulated."""
+    lib = get_lib()
+    verts_ptr = ctypes.POINTER(ctypes.c_double)()
+    tris_ptr = ctypes.POINTER(ctypes.c_longlong)()
+    nv, nf = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    rc = lib.read_obj(
+        os.fsencode(path), ctypes.byref(verts_ptr), ctypes.byref(tris_ptr),
+        ctypes.byref(nv), ctypes.byref(nf),
+    )
+    if rc == 1:
+        raise OSError(f"native read_obj could not read {path}")
+    if rc != 0:
+        raise ValueError(f"{path}: malformed OBJ (a 'v' line with fewer than 3 numbers "
+                         "or a non-integer face index)")
+    try:
+        verts = np.ctypeslib.as_array(verts_ptr, shape=(nv.value * 3,)).reshape(-1, 3).copy()
+        tris = np.ctypeslib.as_array(tris_ptr, shape=(nf.value * 3,)).reshape(-1, 3).copy()
+    finally:
+        lib.free_buffers(
+            ctypes.cast(verts_ptr, ctypes.c_void_p), ctypes.cast(tris_ptr, ctypes.c_void_p)
+        )
+    return verts, tris
 
 
 def native_points_occupancy(vertices: np.ndarray, triangles: np.ndarray, points: np.ndarray) -> np.ndarray:

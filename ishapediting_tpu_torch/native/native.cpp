@@ -13,6 +13,9 @@
 //    marching smooth, drag_utils.py:300).
 // 4. write_obj: buffered ascii OBJ writer ("%.8g" vertex format, matching
 //    the Python writer byte-for-byte).
+// 5. read_obj: ascii OBJ reader: "v" and "f" lines only, a face token read
+//    by its first index ("a/b/c" -> a), polygons fan-triangulated (the JAX
+//    package's Python reader, geometry/mesh.py::_read_obj, line for line).
 //
 // Exposed via a plain C ABI for ctypes.
 
@@ -330,6 +333,75 @@ long long write_obj(const char* path, const double* verts, long long nv,
   if (std::ferror(f)) ok = false;
   const int rc = std::fclose(f);
   return (ok && rc == 0) ? 0 : 2;
+}
+
+// Returns 0, or 1 when the file cannot be read, 3 when a "v" line holds
+// fewer than three numbers or an "f" token is not an integer.
+long long read_obj(const char* path, double** out_verts, long long** out_tris,
+                   long long* out_nv, long long* out_nt) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return 1;
+  std::vector<char> text;
+  char chunk[1 << 16];
+  size_t got;
+  while ((got = std::fread(chunk, 1, sizeof(chunk), f)) > 0)
+    text.insert(text.end(), chunk, chunk + got);
+  const bool bad = std::ferror(f);
+  std::fclose(f);
+  if (bad) return 1;
+  text.push_back('\0');  // strtod/strtoll stop before the end
+  std::vector<double> verts;
+  std::vector<long long> tris, idx;
+  const char* p = text.data();
+  const char* end = p + text.size() - 1;
+  auto blank = [](char c) { return c == ' ' || c == '\t' || c == '\r' || c == '\v' || c == '\f'; };
+  while (p < end) {
+    const char* eol = static_cast<const char*>(std::memchr(p, '\n', end - p));
+    if (!eol) eol = end;
+    if (eol - p >= 2 && p[1] == ' ' && (p[0] == 'v' || p[0] == 'f')) {
+      const char* q = p + 2;
+      if (p[0] == 'v') {
+        for (int k = 0; k < 3; ++k) {
+          while (q < eol && blank(*q)) ++q;
+          char* stop;
+          const double x = std::strtod(q, &stop);
+          if (stop == q || stop > eol) return 3;
+          verts.push_back(x);
+          q = stop;
+        }
+      } else {
+        idx.clear();
+        while (true) {
+          while (q < eol && blank(*q)) ++q;
+          if (q >= eol) break;
+          char* stop;
+          const long long i = std::strtoll(q, &stop, 10);
+          if (stop == q) return 3;
+          idx.push_back(i - 1);
+          q = stop;
+          while (q < eol && !blank(*q)) ++q;  // the rest of "a/b/c"
+        }
+        for (size_t k = 1; k + 1 < idx.size(); ++k) {
+          tris.push_back(idx[0]);
+          tris.push_back(idx[k]);
+          tris.push_back(idx[k + 1]);
+        }
+      }
+    }
+    p = eol + 1;
+  }
+  *out_nv = (long long)(verts.size() / 3);
+  *out_nt = (long long)(tris.size() / 3);
+  *out_verts = (double*)std::malloc(std::max<size_t>(verts.size(), 1) * sizeof(double));
+  *out_tris = (long long*)std::malloc(std::max<size_t>(tris.size(), 1) * sizeof(long long));
+  if (!*out_verts || !*out_tris) {
+    std::free(*out_verts);
+    std::free(*out_tris);
+    return 1;
+  }
+  std::memcpy(*out_verts, verts.data(), verts.size() * sizeof(double));
+  std::memcpy(*out_tris, tris.data(), tris.size() * sizeof(long long));
+  return 0;
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@ yz, xz), pushed through FourierFeatureTransform(32 -> 64, scale=1) and a
 128-128-1 ReLU MLP producing an occupancy logit.
 
 - ``decode_points``: arbitrary point sets (gather-based grid sampling),
-  differentiable w.r.t. the planes.
+  differentiable w.r.t. the planes; ``decode_points_chunked`` for large
+  sets, in fixed chunks.
 - ``decode_grid``: the dense res^3 sweep. On a lattice, plane sampling is a
   separable align-corners resize of each plane, and the Fourier projection is
   linear, so both run per plane pixel; the per-voxel sin/cos come from the
@@ -100,6 +101,15 @@ def decode_points(dec: TriplaneDecoder, planes: torch.Tensor, coords: torch.Tens
     """Occupancy logits at arbitrary points, [N, 3] -> [N, out_dim]."""
     feats = sample_plane_features(planes, coords)
     return mlp_head(dec, feats @ dec.fourier_B)
+
+
+def decode_points_chunked(
+    dec: TriplaneDecoder, planes: torch.Tensor, coords: torch.Tensor, chunk: int = 65536
+) -> torch.Tensor:
+    """``decode_points`` over a large point set, ``chunk`` points at a time,
+    on the planes' device: [N, 3] -> [N, out_dim]."""
+    coords = torch.as_tensor(coords, dtype=torch.float32).to(planes.device)
+    return torch.cat([decode_points(dec, planes, c) for c in torch.split(coords, chunk)], dim=0)
 
 
 def _resize_matrix_align_corners(src: int, dst: int) -> np.ndarray:
