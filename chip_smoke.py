@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's generation, editing, serving, training and
-evaluation paths once on one NVIDIA card.
+"""Drive the PyTorch port's generation, editing, serving, training,
+evaluation and data-parallel paths once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --phases 2,7   # the build and some phases: no result line
@@ -99,8 +99,25 @@ Phases, each fatal on failure (exit code 1, no result line):
    rendered depth, a 2-step drag, save mesh + EditLog and picture, its
    meshes at 64^3; launches exact per run; ``--phases 8`` runs alone (on
    DDIM-10 samples of its own engine, decoded and evaluated in pairs);
-9. print the ``{"kernels": [...]}`` line, the card's name and power limit,
-   and as the last line ``{"ok": true, "device": {...}}``.
+9. two ranks sharing the card (``python -m torch.distributed.run --standalone
+   --nproc_per_node 2 chip_smoke.py --rank-worker <dir>``, gloo: NCCL
+   refuses two ranks on one device), each running in-process: (a)
+   ``cli.generate`` DDIM-10 at chairs width, 2 samples at batch 2 (one
+   trajectory per rank) with ``--sharded_decode`` (each rank decodes,
+   marches and writes its own 256^3 mesh), the gathered latents held to
+   phase 4's one-rank run (relative L2 2e-2); (b) ``decode_grid_sharded``
+   of the first latent at 256^3, gathered, bit-equal to ``decode_grid``;
+   (c) the data-parallel train step on phase 3's bf16 miniature (global
+   batch 4, remat, dropout; two steps), parameters and EMA bit-equal across
+   the ranks, loss terms, ``distributed_mean_kvs`` and gradients held to a
+   one-rank step at batch 4 in this process (3e-2), and a step with one
+   rank's rows NaN changing no rank; (d) on the tiny preset
+   ``invert_batched`` + ``drag_edit_batched`` at N=2 with recorded noises
+   and ``morph_latents`` at 2 frames over the ranks, against one rank
+   (1e-4); each rank's launches exact and added to the totals; a rank that
+   fails fails the phase, with no retry on one rank;
+10. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+    and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA card is present or when the
 port's package is not beside this script.
@@ -113,6 +130,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -161,6 +179,9 @@ def watchdog() -> None:
 
     def _kill():
         print(f"chip_smoke FAILED: over {TIME_LIMIT_S} s", file=sys.stderr, flush=True)
+        for proc in _CHILDREN:  # torchrun's group; its ranks end with it (PR_SET_PDEATHSIG)
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, 9)
         os._exit(3)
 
     t = threading.Timer(TIME_LIMIT_S, _kill)
@@ -656,7 +677,7 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
     say(f"  {phase}: sampling {sample_s:.3f} s for 2 samples ({2 / sample_s:.3f} samples/s, "
         f"first run, launch overheads included), decode+mesh+write {decode_s:.3f} s, "
         f"OBJ {size_mb:.0f} MB, wall {wall:.1f} s")
-    return sample_s
+    return sample_s, samples
 
 
 def run_engine(hk, counter, per_fwd, totals, cfg, label, phase="engine",
@@ -2186,6 +2207,385 @@ def host_module_runs(hk, counter, totals, mp=None, device="cuda", preset_name="c
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+RANKS = 2  # processes sharing the card, over gloo (NCCL refuses two ranks on one device)
+RANK_LIMIT_S = 400  # a rank still running past this ends itself
+DP_BATCH = 4  # the data-parallel step's global batch
+TINY_SRC = [np.array([[0.3, 0.1, -0.2]], np.float32),
+            np.array([[-0.2, 0.3, 0.1], [0.1, -0.3, 0.2]], np.float32)]
+TINY_SCALE, TINY_COF = [40.0, 60.0], [0.3, 0.1]
+_CHILDREN: list = []  # process groups the watchdog kills with the parent
+
+
+def phase9_inputs() -> dict:
+    """What the ranks and the parent's one-rank runs share, from numpy and
+    CPU generators: (c) the bf16 miniature's weights seed, two global
+    batches with their t, noise and dropout masks, and a batch whose last
+    rank's rows are NaN; (d) two tiny latents, the inversion's and the
+    drag's per-step noises, the handles."""
+    from ishapediting_tpu_torch.config import UNetConfig, preset
+    from ishapediting_tpu_torch.models.unet import draw_dropout_masks
+
+    cfg = UNetConfig(**MINI_BF16, dropout=0.1)
+    gen = torch.Generator().manual_seed(8)
+    s = cfg.image_size
+    steps = []
+    for _ in range(2):
+        batch = torch.randn((DP_BATCH, s, s, cfg.in_channels), generator=gen).clamp(-1, 1)
+        steps.append(dict(batch=batch, t=torch.randint(1, 1000, (DP_BATCH,), generator=gen),
+                          noise=torch.randn(batch.shape, generator=gen),
+                          masks=draw_dropout_masks(cfg, DP_BATCH, gen)))
+    bad = steps[1]["batch"].clone()
+    bad[(RANKS - 1) * DP_BATCH // RANKS:] = float("nan")
+    tiny = preset("tiny")
+    rng = np.random.default_rng(9)
+    w = tiny.edit.w_time
+    shape = (2,) + tiny.latent_shape
+    return dict(steps=steps, nan_batch=bad,
+                latents=rng.uniform(-0.8, 0.8, shape).astype(np.float32),
+                inv_noises=rng.normal(size=(w,) + shape).astype(np.float32),
+                drag_noises=rng.normal(size=(w,) + shape).astype(np.float32))
+
+
+def dp_model(device):
+    from ishapediting_tpu_torch.config import UNetConfig
+
+    cfg = UNetConfig(**MINI_BF16, dropout=0.1)
+    return cfg, signal_model(cfg, torch.Generator().manual_seed(6)).to(device)
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+
+
+def tiny_edit_runs(inputs, device, mesh=None) -> dict:
+    """(d) on the tiny preset: ``invert_batched`` with the recorded
+    inversion noises, ``drag_edit_batched`` on its records with the
+    recorded drag noises, ``morph_latents`` at 2 frames; over the ranks of
+    ``mesh``, or on one rank."""
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.edit.batch import build_batched_problems, drag_edit_batched, invert_batched
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.edit.morph import morph_latents
+    from ishapediting_tpu_torch.parallel.mesh import replicate
+
+    tiny = preset("tiny")
+    eng = DragEngine(tiny, seed=0, device=device)
+    if mesh is not None:
+        replicate(eng.unet, mesh)
+        replicate(eng.decoder, mesh)
+    w = tiny.edit.w_time
+    lat = torch.from_numpy(inputs["latents"]).to(device)
+    inv = invert_batched(eng.sched, eng.model_fn(feat=True), lat, w_time=w,
+                         noises=list(inputs["inv_noises"]), mesh=mesh)
+    problems = build_batched_problems(TINY_SRC, [s + np.float32(0.2) for s in TINY_SRC], r1=tiny.edit.r1,
+                                      voxel_size=tiny.edit.voxel_size, feat_width=inv["features"].shape[-2],
+                                      device=device)
+    edited = drag_edit_batched(eng.sched, eng.model_fn(feat=True), inv["w"], inv["features"], problems,
+                               w_time=w, scale=TINY_SCALE, cof=TINY_COF, noises=list(inputs["drag_noises"]),
+                               mesh=mesh)
+    with torch.no_grad():
+        frames = morph_latents(eng.sched, eng.model_fn(), lat[0], lat[1], [0.0, 1.0], mesh=mesh)
+    return dict(drag=edited.cpu(), morph=frames.cpu())
+
+
+def tiny_edit_forwards() -> int:
+    """UNet forwards of ``tiny_edit_runs`` on each rank: the inversion's
+    ceil(w_time / 2) batched evaluations, w_time drag steps, the morph's
+    T - 1 encode and T decode steps."""
+    from ishapediting_tpu_torch.config import preset
+
+    tiny = preset("tiny")
+    w, steps = tiny.edit.w_time, int(tiny.diffusion.timestep_respacing)
+    return -(-w // 2) + w + (steps - 1) + steps
+
+
+def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid_res=256) -> None:
+    """One rank of phase 9, started by torchrun; every part fatal (exit 1,
+    which ends the other rank through torchrun). Writes its numbers to
+    ``rank<r>.json`` and its tensors to ``rank<r>.pt`` in ``work``."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG: end with torchrun
+    if os.getppid() == 1:
+        sys.exit(1)
+    t = threading.Timer(RANK_LIMIT_S, lambda: os._exit(3))
+    t.daemon = True
+    t.start()
+    sys.path.insert(0, ROOT)
+    from ishapediting_tpu_torch.cli.generate import main as generate
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.edit.fit import latent_to_planes
+    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.ops import hopper_kernels as hk
+    from ishapediting_tpu_torch.ops.triplane import decode_grid
+    from ishapediting_tpu_torch.parallel import mesh as pmesh
+    from ishapediting_tpu_torch.parallel.decode import decode_grid_sharded
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
+    from ishapediting_tpu_torch.utils.device import set_cuda_flags
+    from ishapediting_tpu_torch.utils.logger import distributed_mean_kvs
+
+    t_start = time.perf_counter()
+    pmesh.initialize_distributed(backend, device=device)
+    mesh = pmesh.make_mesh(device=device)
+    rank, dev = mesh.rank, mesh.device
+    set_cuda_flags()
+    counter = ForwardCounter(UNetModel)
+    totals: dict = {}
+    res: dict = {"rank": rank, "size": mesh.size, "device": str(dev), "backend": backend}
+    tensors: dict = {}
+
+    def tag(msg):
+        say(f"  [rank {rank}] {msg}")
+
+    # (a) cli.generate at full width, one trajectory per rank, sharded decode
+    out = os.path.join(work, "generate")
+    argv = ["--random_init", "--preset", preset_name, "--use_ddim", "--num_steps", "10", "--num_samples", "2",
+            "--batch_size", "2", "--seed", "0", "--sharded_decode", "--shape_resolution", str(grid_res),
+            "--save_dir", out, "--device", device, "--dist_backend", backend]
+    per_fwd = kernel_calls_per_forward(preset(preset_name).unet)
+    buf = io.StringIO()
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        samples = generate(argv)
+    sync()
+    res["generate_wall_s"] = time.perf_counter() - t0
+    if counter.n != 10:
+        fail(f"rank {rank}: cli.generate ran {counter.n} UNet forwards, expected 10 (DDIM-10 at batch 1)")
+    check_counts(hk, f"rank {rank} cli.generate", counter.n, per_fwd, totals)
+    res["generate_launches"] = dict(hk.LAUNCHES)
+    log = buf.getvalue().splitlines()
+    res["sample_s"] = float(next(l for l in log if l.startswith("ddpm time:")).split(":")[1])
+    res["decode_mesh_s"] = float(next(l for l in log if l.startswith("decode time:")).split(":")[1])
+    res["broadcast_s"] = float(next(l for l in log if "weights broadcast" in l).split(" in ")[1].split()[0])
+    obj = os.path.join(out, "objects", f"{rank}.obj")
+    res["mesh_bytes"] = os.path.getsize(obj) if os.path.exists(obj) else 0
+    if res["mesh_bytes"] == 0:
+        fail(f"rank {rank}: its 256^3 mesh {obj} is missing or empty")
+    os.remove(obj)  # 256^3 meshes of random weights are large
+    res["generate_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    tensors["samples"] = torch.from_numpy(samples)
+    tag(f"cli.generate: sampling {res['sample_s']:.3f} s, decode+mesh {res['decode_mesh_s']:.3f} s "
+        f"({res['mesh_bytes'] / 1e6:.0f} MB OBJ), weights broadcast {res['broadcast_s']:.3f} s, "
+        f"wall {res['generate_wall_s']:.1f} s, peak {res['generate_peak_gib']:.2f} GiB")
+
+    # (b) the first latent decoded over the ranks at 256^3, against decode_grid on one rank
+    eng = DragEngine(preset(preset_name, 10, use_ddim=True), seed=0, device=dev)
+    pmesh.replicate(eng.decoder, mesh)
+    planes = latent_to_planes(torch.from_numpy(samples[:1]).to(dev), eng.half_range, eng.middle)
+    sync()
+    t0 = time.perf_counter()
+    slab = decode_grid_sharded(eng.decoder, planes, mesh, res=grid_res)
+    sync()
+    res["slab_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = pmesh.gather(slab, mesh)
+    sync()
+    res["gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        t0 = time.perf_counter()
+        ref = decode_grid(eng.decoder, planes, res=grid_res)
+        sync()
+        res["decode_grid_s"] = time.perf_counter() - t0
+        res["grid_equal"] = bool(torch.equal(grid, ref))
+        res["grid_max_abs_diff"] = float((grid - ref).abs().max())
+        if not res["grid_equal"]:
+            fail(f"decode_grid_sharded over {mesh.size} ranks differs from decode_grid by "
+                 f"{res['grid_max_abs_diff']:.3g}")
+        tag(f"decode_grid_sharded {grid_res}^3: slab {res['slab_s']:.3f} s, gather {res['gather_s']:.3f} s; "
+            f"decode_grid on one rank {res['decode_grid_s']:.3f} s; bit-equal")
+        del ref
+    del eng, slab, grid, planes
+    torch.cuda.empty_cache()
+
+    # (c) the data-parallel train step on the bf16 miniature, global batch 4, remat, dropout
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    cfg, model = dp_model(dev)
+    pmesh.replicate(model, mesh)
+    state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
+    step = make_train_step(cfg, make_schedule(1000, "linear", ""), mesh=mesh)
+    want = train_step_launches(hk, cfg)
+    res["train"] = []
+    for i, st in enumerate(inputs["steps"]):
+        sync()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = step(state, st["batch"].to(dev), t=st["t"].to(dev), noise=st["noise"].to(dev),
+                       dropout_masks=[None if m is None else m.to(dev) for m in st["masks"]])
+        sync()
+        check_launches(hk, f"rank {rank} train step {i + 1}", want, totals)
+        res["train"].append(dict(metrics, s=time.perf_counter() - t0,
+                                 mean_kvs=distributed_mean_kvs(metrics)))
+        if i == 0:
+            tensors["grads"] = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()}
+        tensors[f"params_{i + 1}"] = flat_params(model)
+    tensors["ema"] = torch.cat([v.reshape(-1) for v in state.ema_params.values()]).cpu()
+    before = flat_params(model)
+    hk.reset_launch_counts()
+    metrics = step(state, inputs["nan_batch"].to(dev), t=inputs["steps"][1]["t"].to(dev),
+                   noise=inputs["steps"][1]["noise"].to(dev),
+                   dropout_masks=[None if m is None else m.to(dev) for m in inputs["steps"][1]["masks"]])
+    sync()
+    check_launches(hk, f"rank {rank} train step, NaN shard", want, totals)
+    res["nan"] = dict(loss=metrics["loss"], unchanged=bool(torch.equal(before, flat_params(model))),
+                      step=state.step)
+    if not (math.isnan(metrics["loss"]) and res["nan"]["unchanged"] and state.step == 2):
+        fail(f"rank {rank}: the step with a NaN shard changed the state ({res['nan']})")
+    tag(f"data-parallel train step (bf16 miniature, global batch {DP_BATCH}, remat, dropout 0.1): "
+        f"{[round(r['s'], 3) for r in res['train']]} s, loss {[r['loss'] for r in res['train']]}; "
+        f"NaN shard: no rank steps")
+    del model, state
+
+    # (d) the tiny preset: batched drag and morph over the ranks
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    tensors.update(tiny_edit_runs(inputs, dev, mesh))
+    sync()
+    res["tiny_s"] = time.perf_counter() - t0
+    tiny_per = kernel_calls_per_forward(preset("tiny").unet)
+    if counter.n != tiny_edit_forwards():
+        fail(f"rank {rank}: the tiny runs made {counter.n} UNet forwards, expected {tiny_edit_forwards()}")
+    check_counts(hk, f"rank {rank} tiny drag and morph", counter.n, tiny_per, totals, "attention_generic")
+    tag(f"tiny invert + drag + morph over the ranks: {res['tiny_s']:.1f} s")
+
+    res["totals"] = totals
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["wall_s"] = time.perf_counter() - t_start
+    counter.close()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.save(tensors, os.path.join(work, f"rank{rank}.pt"))
+    pmesh.barrier()
+    if rank == 0:
+        shutil.rmtree(out, ignore_errors=True)
+    torch.distributed.destroy_process_group()
+
+
+def ranks_phase(totals, card, ddim_samples, device="cuda") -> dict:
+    """Phase 9: ``RANKS`` ranks on the one card over gloo, launched once with
+    torchrun; their results held to one-rank runs: (a) the gathered DDIM
+    latents to phase 4's (relative L2 2e-2, bf16 batch 1 against batch 2),
+    (b) reported by rank 0, (c) parameters bit-equal across ranks, loss
+    terms and gradients to the parent's one-rank step at batch 4 (3e-2, the
+    bf16 tolerance of phase 7), (d) to the parent's one-rank runs (1e-4)."""
+    import gc
+    import signal
+
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  parent before the ranks: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    d = os.path.join(WORK, "ranks")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    inputs = phase9_inputs()
+    torch.save(inputs, os.path.join(d, "inputs.pt"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(RANKS),
+           os.path.abspath(__file__), "--rank-worker", d, "--dist_backend", "gloo"]
+    say(f"  {' '.join(cmd[1:])}")
+    log_path = os.path.join(d, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+        _CHILDREN.append(proc)
+        try:
+            rc = proc.wait(timeout=RANK_LIMIT_S + 60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith("  [rank") or "launches in rank" in line:
+            say(line)
+    if rc != 0:
+        say("\n".join(lines[-60:]))
+        fail(f"phase 9: the ranks ended with {rc}")
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(dict(json.load(f), tensors=torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)))
+
+    # (a) the gathered latents against phase 4's one-rank DDIM run
+    samples = ranks[0]["tensors"]["samples"].numpy()
+    a_err = [rel_l2(samples[i], ddim_samples[i]) for i in range(2)]
+    same = all(np.array_equal(r["tensors"]["samples"].numpy(), samples) for r in ranks)
+    say(f"  (a) cli.generate over {RANKS} ranks against phase 4's one-rank DDIM-10: relative L2 "
+        f"{a_err[0]:.2e}, {a_err[1]:.2e} (tol 2e-2); the ranks' samples equal: {same}")
+    if not (max(a_err) <= 2e-2 and same and np.isfinite(samples).all()):
+        fail("phase 9 (a): the latents sampled over the ranks disagree with the one-rank run")
+
+    # (c) the data-parallel step against the parent's one-rank step at batch 4
+    r0, r1 = ranks[0]["tensors"], ranks[1]["tensors"]
+    for k in ("params_1", "params_2", "ema"):
+        if not torch.equal(r0[k], r1[k]):
+            fail(f"phase 9 (c): {k} differ between the ranks")
+    cfg, model = dp_model(device)
+    state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
+    step = make_train_step(cfg, make_schedule(1000, "linear", ""))
+    one = []
+    for i, st in enumerate(inputs["steps"]):
+        one.append(step(state, st["batch"].to(device), t=st["t"].to(device), noise=st["noise"].to(device),
+                        dropout_masks=[None if m is None else m.to(device) for m in st["masks"]]))
+        if i == 0:
+            grads = {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()}
+    loss_err = max(abs(r["train"][i][k] - one[i][k]) / abs(one[i][k])
+                   for r in ranks for i in range(2) for k in ("loss", "mse", "vb"))
+    kvs_err = max(abs(r["train"][i]["mean_kvs"][k] - one[i][k]) / abs(one[i][k])
+                  for r in ranks for i in range(2) for k in ("loss", "mse", "vb"))
+    floor = 1e-4 * float(torch.sqrt(sum(g.square().sum() for g in grads.values())))
+    g_err = {k: float((r0["grads"][k] - g).norm()) / max(float(g.norm()), floor) for k, g in grads.items()}
+    g_all = float(torch.sqrt(sum((r0["grads"][k] - g).square().sum() for k, g in grads.items()))
+                  / torch.sqrt(sum(g.square().sum() for g in grads.values())))
+    worst = max(g_err, key=g_err.get)
+    say(f"  (c) data-parallel step: parameters and EMA bit-equal across the ranks after each step; "
+        f"against the one-rank step at batch {DP_BATCH}: loss terms {loss_err:.2e}, "
+        f"distributed_mean_kvs {kvs_err:.2e}, gradients relative L2 {g_all:.2e} (worst tensor {worst} "
+        f"{g_err[worst]:.2e}) (tol 3e-2); NaN shard: {[r['nan'] for r in ranks]}")
+    if not (loss_err <= 3e-2 and kvs_err <= 3e-2 and g_err[worst] <= 3e-2):
+        fail("phase 9 (c): the data-parallel step disagrees with the one-rank step")
+    del model, state
+
+    # (d) the tiny drag and morph against the parent's one-rank runs
+    one_tiny = tiny_edit_runs(inputs, device)
+    d_err = {k: max(float((r["tensors"][k] - one_tiny[k]).abs().max()) for r in ranks) for k in ("drag", "morph")}
+    say(f"  (d) tiny preset over the ranks against one rank: batched drag N=2 max abs {d_err['drag']:.2e}, "
+        f"morph at 2 frames {d_err['morph']:.2e} (tol 1e-4)")
+    if not max(d_err.values()) <= 1e-4:
+        fail("phase 9 (d): the batched drag or the morph over the ranks disagrees with one rank")
+
+    # (e) every rank's launches into the totals
+    for r in ranks:
+        for k, v in r["totals"].items():
+            totals[k] = totals.get(k, 0) + v
+    shutil.rmtree(d)
+    out = dict(wall_s=wall, rel_l2_vs_one_rank=a_err, train_loss_rel_err=loss_err, train_grad_rel_l2=g_all,
+               tiny_max_abs=d_err, ranks=[{k: v for k, v in r.items() if k != "tensors"} for r in ranks])
+    say(f"  ({card}) phase 9 over {RANKS} ranks sharing the card (gloo): "
+        + "; ".join(f"rank {r['rank']}: sampling {r['sample_s']:.2f} s, decode+mesh {r['decode_mesh_s']:.2f} s, "
+                    f"broadcast {r['broadcast_s']:.2f} s, peak {r['peak_gib']:.2f} GiB, wall {r['wall_s']:.1f} s"
+                    for r in ranks)
+        + f"; phase wall {wall:.1f} s")
+    return out
+
+
 def card_phase(hk, dev, counter, totals) -> dict:
     """Phase 3: the whole UNet on the card against the CPU, the tiny
     engine, and the edit gate."""
@@ -2216,7 +2616,7 @@ def main_path(hk, counter, totals, keep=False) -> dict:
     chairs = preset("chairs", 20)
     per_fwd = kernel_calls_per_forward(chairs.unet)
     say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
-    ddim_s = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim", keep=keep)
+    ddim_s, ddim_samples = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim", keep=keep)
     run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
     chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
         chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
@@ -2227,7 +2627,7 @@ def main_path(hk, counter, totals, keep=False) -> dict:
     say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
         f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
     edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals, keep=keep)
-    return dict(chairs=chairs, per_fwd=per_fwd, ddim_s=ddim_s, engine=engine, lat=lat,
+    return dict(chairs=chairs, per_fwd=per_fwd, ddim_s=ddim_s, ddim_samples=ddim_samples, engine=engine, lat=lat,
                 first_mesh=first_mesh, edits=edits)
 
 
@@ -2235,11 +2635,21 @@ def main() -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description="Drive the port once on one CUDA card")
-    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8",
+    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8,9",
                         help="phases to run after the build (a partial run prints no result line)")
-    phases = {int(p) for p in parser.parse_args().phases.split(",")}
+    parser.add_argument("--rank-worker", type=str, default=None,
+                        help="run as one rank of phase 9 (torchrun starts these), writing into this dir")
+    parser.add_argument("--dist_backend", type=str, default="gloo",
+                        help="phase 9's process-group backend (ranks sharing one card need gloo)")
+    args = parser.parse_args()
+    if args.rank_worker:
+        rank_worker(args.rank_worker, args.dist_backend)
+        return
+    phases = {int(p) for p in args.phases.split(",")}
     if 5 in phases and 4 not in phases:
         parser.error("phase 5 runs on phase 4's engine")
+    if 9 in phases and 4 not in phases:
+        parser.error("phase 9 holds its samples to phase 4's DDIM run")
     watchdog()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "ishapediting_tpu_torch")):
@@ -2303,8 +2713,13 @@ def main() -> None:
             "cli.eval on cli.edit's two 256^3 meshes, the solver sweep (chairs, then cli.eval "
             "--solver_sweep tiny), the headless GUI over DragEngine (create, pick, drag, save)")
         host = host_module_runs(hk, counter, totals, mp if 4 in phases else None)
+    if 9 in phases:
+        say(f"[9] {RANKS} ranks sharing the card over gloo (one torchrun launch): cli.generate DDIM-10 at "
+            "chairs width with --sharded_decode, decode_grid_sharded at 256^3, the data-parallel train step, "
+            "the tiny batched drag and morph over the ranks")
+        ranks = ranks_phase(totals, card, mp["ddim_samples"])
     counter.close()
-    if phases != {2, 3, 4, 5, 6, 7, 8}:
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9}:
         say(f"partial run (phases {sorted(phases)}): total {time.perf_counter() - t_start:.1f} s; "
             f"launches {totals}; no result line")
         return
@@ -2339,6 +2754,7 @@ def main() -> None:
                                         default=float))
     say("training: " + json.dumps(training, default=float))
     say("host modules: " + json.dumps(host, default=float))
+    say("ranks: " + json.dumps(ranks, default=float))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

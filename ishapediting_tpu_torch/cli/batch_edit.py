@@ -20,9 +20,12 @@ Examples (on the card unless ``--device cpu``)::
         --latent_seed 1 --latent_seed 2 --source 0.2 0 0 --target 0.4 0 0 \
         --device cpu --out /tmp/batch_out
 
-Every shape runs on one device; spreading them over several GPUs waits for
-the multi-GPU slice. Seeds give other shapes than the JAX package's CLI: the
-random streams differ.
+Under ``torchrun`` the shapes split over the largest number of ranks that
+divides N (one shape per rank at N = ranks): each rank fits, inverts and
+drags its shapes and writes their meshes, with each shape's draws those of
+its index, so the results equal a one-rank run's; rank 0 writes the EditLog.
+Ranks that share one card need ``--dist_backend gloo``. Seeds give other
+shapes than the JAX package's CLI: the random streams differ.
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feat_dtype", type=str, default=None, choices=["float32", "bfloat16"],
                    help="guidance-feature cache dtype; default: keep the config's")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (default: nccl on cuda, gloo on "
+                        "cpu); ranks that share one card need gloo")
     return p
 
 
@@ -79,7 +85,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from ishapediting_tpu_torch.cli.edit import parse_edit_log, write_edit_log
     from ishapediting_tpu_torch.config import preset, with_feat_store_dtype
-    from ishapediting_tpu_torch.core.diffusion import p_sample_loop
     from ishapediting_tpu_torch.edit.batch import (
         build_batched_problems,
         drag_edit_batched,
@@ -88,6 +93,8 @@ def main(argv=None):
     )
     from ishapediting_tpu_torch.edit.engine import DragEngine
     from ishapediting_tpu_torch.geometry.mesh import TriMesh
+    from ishapediting_tpu_torch.parallel import mesh as pmesh
+    from ishapediting_tpu_torch.parallel.sampling import sample_sharded
 
     if bool(args.mesh) == bool(args.latent_seed):
         raise SystemExit("give either --mesh ... or --latent_seed ... (>= 1)")
@@ -108,22 +115,37 @@ def main(argv=None):
     scales = np.asarray([float(s["scale"]) for s in specs], np.float32)
     lams = np.asarray([float(s["lam"]) for s in specs], np.float32)
 
+    if not (args.model_dir or args.random_init):
+        raise SystemExit("need --model_dir or --random_init")
+    if pmesh.launched():
+        pmesh.initialize_distributed(args.dist_backend, device=args.device)
+    # the data axis: the largest rank count that divides n
+    n_world, _ = pmesh.world()
+    data = max(d for d in range(1, min(n, n_world) + 1) if n % d == 0)
+    mesh = pmesh.make_mesh(data, device=args.device)
+    if not mesh.active:
+        pmesh.barrier()
+        return None
     config = with_feat_store_dtype(preset(args.preset, args.num_steps), args.feat_dtype)
     if args.w_time is not None:
         config = dataclasses.replace(config, edit=dataclasses.replace(config.edit, w_time=args.w_time))
     if args.model_dir:
-        engine = DragEngine.from_model_dir(args.model_dir, config=config, device=args.device)
-    elif args.random_init:
-        engine = DragEngine(config, seed=args.seed, device=args.device)
+        engine = DragEngine.from_model_dir(args.model_dir, config=config, device=mesh.device)
     else:
-        raise SystemExit("need --model_dir or --random_init")
+        engine = DragEngine(config, seed=args.seed, device=mesh.device)
+    pmesh.replicate(engine.unet, mesh)
+    pmesh.replicate(engine.decoder, mesh)
     os.makedirs(args.out, exist_ok=True)
-    print(f"{n} shapes on one {engine.device.type} device")
+    if data > 1:
+        print(f"{n} shapes over a data axis of {data} ranks (rank {mesh.rank})")
+    else:
+        print(f"{n} shapes on one {engine.device.type} device")
     # activation memory of the batched forward + backward grows with the
     # shapes per device; the engine's default (off) is a batch-1 choice
-    use_remat = engine.remat or n > 8 if args.remat == "auto" else args.remat == "on"
+    per = n // data
+    use_remat = engine.remat or per > 8 if args.remat == "auto" else args.remat == "on"
     if use_remat != engine.remat:
-        print(f"remat={'on' if use_remat else 'off'} for the batched programs ({n} shapes/device)")
+        print(f"remat={'on' if use_remat else 'off'} for the batched programs ({per} shapes/device)")
     mf = engine.model_fn(feat=True, remat=use_remat)
     mf_plain = engine.model_fn(feat=False, remat=use_remat)
     clip = config.diffusion.clip_denoised
@@ -142,14 +164,14 @@ def main(argv=None):
         latents = fit_real_shapes_batched(
             sched_fit, mf_plain, engine.decoder, meshes, engine.half_range, engine.middle,
             gen(args.seed), latent_shape=config.latent_shape, fit_cfg=config.fit, seed=args.seed,
-            clip_denoised=clip,
+            clip_denoised=clip, mesh=mesh,
         )
     else:
         print("sampling latents (batched) ...")
         x_T = torch.cat([torch.randn((1,) + config.latent_shape, generator=gen(s), device=engine.device)
                          for s in args.latent_seed])
-        with torch.no_grad():
-            latents = p_sample_loop(engine.sched, mf_plain, x_T, gen(args.seed + 1), clip_denoised=clip)
+        latents = sample_sharded(engine.sched, mf_plain, mesh, batch_size=n, latent_shape=config.latent_shape,
+                                 generator=gen(args.seed + 1), sampler="ddpm", clip_denoised=clip, x_T=x_T)
     engine._sync()
     walls["latents_s"] = time.perf_counter() - t0
 
@@ -157,7 +179,8 @@ def main(argv=None):
     print("edit-friendly inversion (batched) ...")
     t0 = time.perf_counter()
     inv = invert_batched(engine.sched, mf, latents, gen(args.seed + 2), w_time=config.edit.w_time,
-                         clip_denoised=clip, feat_dtype=getattr(torch, config.edit.feat_store_dtype))
+                         clip_denoised=clip, feat_dtype=getattr(torch, config.edit.feat_store_dtype),
+                         mesh=mesh)
     engine._sync()
     walls["inversion_s"] = time.perf_counter() - t0
 
@@ -180,21 +203,24 @@ def main(argv=None):
         clip_denoised=clip, noise_mode=noise_mode,
         variances_batch=None if positions is not None else inv["variances"],
         variance_noise_batch=None if positions is not None else inv["variance_noise"],
-        edit_positions=positions,
+        edit_positions=positions, mesh=mesh,
     )
     engine._sync()
     walls["drag_s"] = time.perf_counter() - t0
 
-    # --- decode + write -----------------------------------------------------
+    # --- decode + write: each rank its own shapes, rank 0 the EditLog --------
     t0 = time.perf_counter()
-    for i in range(n):
+    for i in range(n)[mesh.rows(n)]:
         engine.get_mesh(latents[i : i + 1]).write(os.path.join(args.out, f"original{i + 1:02d}.obj"))
         m = engine.get_mesh(edited[i])
         out_path = os.path.join(args.out, f"edit{i + 1:02d}.obj")
         m.write(out_path)
-        write_edit_log(os.path.join(args.out, "EditLog"), f"{i + 1:02d}", specs[i]["sources"],
-                       specs[i]["targets"], float(specs[i]["scale"]), float(specs[i]["lam"]))
         print(f"  wrote {out_path} ({len(m.vertices)} verts)")
+    if mesh.rank == 0:
+        for i in range(n):
+            write_edit_log(os.path.join(args.out, "EditLog"), f"{i + 1:02d}", specs[i]["sources"],
+                           specs[i]["targets"], float(specs[i]["scale"]), float(specs[i]["lam"]))
+    pmesh.barrier()
     walls["mesh_s"] = time.perf_counter() - t0
     print("walls " + " ".join(f"{k}={v:.3f}" for k, v in walls.items()))
     return {"engine": engine, "latents": latents, "inversion": inv, "problems": problems,

@@ -8,9 +8,12 @@ physical triplane ``.npy`` (``--tri_a``/``--tri_b``, the layouts of
 ``io/planes.py``). Both endpoints DDIM-encode as one batch-2 walk, are
 interpolated with slerp, and all frames decode as one batch-K walk
 (``edit/morph.py``). Writes ``frame_kk.obj`` meshes and ``latents.npy``
-([K, H, W, C] normalized). Runs on CUDA unless ``--device cpu``; spreading
-the frames over several GPUs waits for the multi-GPU slice. Seeds give
-other shapes than the JAX package's CLI: the random streams differ.
+([K, H, W, C] normalized). Runs on CUDA unless ``--device cpu``. Under
+``torchrun``, when the frame count divides by the ranks, each rank decodes
+and meshes its own frames (one per rank at K = ranks) and rank 0 writes
+``latents.npy``; otherwise rank 0 morphs alone. Ranks that share one card
+need ``--dist_backend gloo``. Seeds give other shapes than the JAX
+package's CLI: the random streams differ.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip_decode", action="store_true", help="write latents.npy only")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                   help="process-group backend under torchrun (default: nccl on cuda, gloo on "
+                        "cpu); ranks that share one card need gloo")
     return p
 
 
@@ -67,29 +73,44 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.parallel import mesh as pmesh
 
+    if pmesh.launched():
+        pmesh.initialize_distributed(args.dist_backend, device=args.device)
+    n_world, _ = pmesh.world()
+    # one frame trajectory per rank where the frames divide; else rank 0 alone
+    mesh = pmesh.make_mesh(n_world if args.frames % n_world == 0 else 1, device=args.device)
+    if not (args.model_dir or args.random_init):
+        raise SystemExit("need --model_dir or --random_init")
+    if not mesh.active:
+        pmesh.barrier()
+        return None, None
     config = preset(args.preset, args.num_steps)
     if args.model_dir:
-        engine = DragEngine.from_model_dir(args.model_dir, config=config, device=args.device)
-    elif args.random_init:
-        engine = DragEngine(config, seed=args.seed, device=args.device)
+        engine = DragEngine.from_model_dir(args.model_dir, config=config, device=mesh.device)
     else:
-        raise SystemExit("need --model_dir or --random_init")
+        engine = DragEngine(config, seed=args.seed, device=mesh.device)
+    pmesh.replicate(engine.unet, mesh)
+    pmesh.replicate(engine.decoder, mesh)
 
     lat_a = endpoint_latent(engine, args.seed_a, args.tri_a, "a")
     lat_b = endpoint_latent(engine, args.seed_b, args.tri_b, "b")
     t0 = time.time()
-    latents = engine.morph(lat_a, lat_b, n=args.frames)
-    print(f"morphed {args.frames} frames (batched encode+decode, {round(time.time() - t0, 3)}s)")
+    latents = engine.morph(lat_a, lat_b, n=args.frames, mesh=mesh)
+    print(f"morphed {args.frames} frames (batched encode+decode"
+          + (f", over {mesh.size} ranks" if mesh.size > 1 else "")
+          + f", {round(time.time() - t0, 3)}s)")
 
     os.makedirs(args.out, exist_ok=True)
-    np.save(os.path.join(args.out, "latents.npy"), latents)
+    if mesh.rank == 0:
+        np.save(os.path.join(args.out, "latents.npy"), latents)
     if not args.skip_decode:
-        for k in range(latents.shape[0]):
-            mesh = engine.get_mesh(latents[k][None], smooth=args.smooth, res=args.shape_resolution)
+        for k in range(latents.shape[0])[mesh.rows(latents.shape[0])]:
+            mesh_k = engine.get_mesh(latents[k][None], smooth=args.smooth, res=args.shape_resolution)
             path = os.path.join(args.out, f"frame_{k:02d}.obj")
-            mesh.write(path)
-            print(f"wrote {path} ({len(mesh.vertices)} verts)")
+            mesh_k.write(path)
+            print(f"wrote {path} ({len(mesh_k.vertices)} verts)")
+    pmesh.barrier()
     return engine, latents
 
 

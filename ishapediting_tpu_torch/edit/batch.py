@@ -11,8 +11,11 @@ gradient (the UNet's GroupNorm and attention are per sample). ``scale`` and
 including the inversion-anchored noise modes ("fixed_variance", "replay").
 
 All shapes share one handle count (``build_batched_problems`` pads with
-repeated handles, a no-op for both losses). Spreading the shapes over
-several GPUs waits for the multi-GPU slice.
+repeated handles, a no-op for both losses). With ``mesh=`` the shapes split
+over the ranks of a data axis and the results are gathered: the losses are
+per shape, and each shape keeps the draws of its global index (its own
+generator, its rows of a whole-batch draw), so a shape's result does not
+depend on the rank that runs it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from ishapediting_tpu_torch.core.schedule import Schedule, validate_w_time
 from ishapediting_tpu_torch.edit.drag import DragProblem, build_drag_problem, drag_losses
 from ishapediting_tpu_torch.edit.features import regroup_features
 from ishapediting_tpu_torch.edit.fit import fit_guided, sample_training_points
+from ishapediting_tpu_torch.parallel.mesh import DataMesh, gather
+from ishapediting_tpu_torch.parallel.sampling import RowDraws
 
 
 def stack_problems(problems: Sequence[DragProblem]) -> DragProblem:
@@ -46,9 +51,17 @@ def stack_problems(problems: Sequence[DragProblem]) -> DragProblem:
     )
 
 
-def _shape_problem(problems: DragProblem, i: int) -> DragProblem:
+def _shape_problem(problems: DragProblem, i) -> DragProblem:
     return DragProblem(problems.patch_grid[i], problems.shift_grid[i], problems.masks[i],
                        problems.mask_count[i])
+
+
+def _sharded(mesh: Optional[DataMesh]) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def _rows(x, rows: slice):
+    return None if x is None else x[rows]
 
 
 def drag_edit_batched(
@@ -69,6 +82,7 @@ def drag_edit_batched(
     variance_noise_batch: Optional[torch.Tensor] = None,  # same shape
     edit_positions: Optional[np.ndarray] = None,
     noises: Optional[Sequence] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> torch.Tensor:
     """Edit N shapes together; returns [N, 1, H, W, C] latents.
 
@@ -85,7 +99,9 @@ def drag_edit_batched(
     ``w_time - 1 - positions[::-1][j]`` of the same ``features_batch``.
 
     Shape i's step noise comes from ``generators[i]``; ``noises[j]`` ([N,
-    ...] per step j, in loop order) replaces the draws."""
+    ...] per step j, in loop order) replaces the draws. With ``mesh`` the
+    rank takes its rows of every per-shape argument and the edited latents
+    are gathered on every rank of the axis."""
     if noise_mode not in ("resample", "fixed_variance", "replay"):
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
     if features_batch.shape[1] != w_time:
@@ -127,6 +143,19 @@ def drag_edit_batched(
         raise ValueError(f"need {n} generators (one per shape) or noises=")
     else:
         gens = list(generators)
+    if _sharded(mesh):
+        rows = mesh.rows(n)
+        local = drag_edit_batched(
+            sched, model_fn_feat, w_batch[rows], features_batch[rows],
+            _shape_problem(problems, rows), _rows(gens, rows), w_time=w_time,
+            scale=np.broadcast_to(np.asarray(scale, np.float32), (n,))[rows],
+            cof=np.broadcast_to(np.asarray(cof, np.float32), (n,))[rows], loss_type=loss_type,
+            clip_denoised=clip_denoised, noise_mode=noise_mode,
+            variances_batch=_rows(variances_batch, rows),
+            variance_noise_batch=_rows(variance_noise_batch, rows), edit_positions=edit_positions,
+            noises=None if noises is None else [torch.as_tensor(z)[rows] for z in noises],
+        )
+        return gather(local, mesh)
     scale_t = torch.as_tensor(np.broadcast_to(np.asarray(scale, np.float32), (n,)).copy(), device=dev)
     cof_t = torch.as_tensor(np.broadcast_to(np.asarray(cof, np.float32), (n,)).copy(), device=dev)
     shape_problems = [_shape_problem(problems, i) for i in range(n)]
@@ -172,6 +201,7 @@ def invert_batched(
     chunk: int = 2,
     feat_dtype: torch.dtype = torch.float32,
     noises: Optional[Sequence] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """Edit-friendly inversion of N latents as one batch, laid out for
     ``drag_edit_batched``:
@@ -184,11 +214,18 @@ def invert_batched(
 
     The backward evaluations run ``chunk`` steps per forward (batch
     ``chunk * N``). Forward noise from ``generator``, or ``noises[t]``
-    ([N, H, W, C], t ascending)."""
+    ([N, H, W, C], t ascending). With ``mesh`` each rank inverts its rows,
+    drawing each step's noise for all N shapes and keeping its rows, and
+    every record is gathered on every rank of the axis."""
     validate_w_time(sched, w_time, context="invert_batched")
+    latents = latents.float()
+    if _sharded(mesh):
+        rows = mesh.rows(latents.shape[0])
+        noises = RowDraws(generator, latents.shape, rows, latents.device, noises)
+        latents, generator = latents[rows], None
     with torch.no_grad():
         out = ddpm_inversion(
-            sched, model_fn_feat, latents.float(), generator, steps=w_time,
+            sched, model_fn_feat, latents, generator, steps=w_time,
             feat_postprocess=lambda f: regroup_features(f).to(feat_dtype),
             clip_denoised=clip_denoised, chunk=chunk, noises=noises,
         )
@@ -196,13 +233,59 @@ def invert_batched(
     def move(a):
         return a.transpose(0, 1)
 
-    return {
+    records = {
         "w": out["latent"][:, None],
         "features": move(out["features"]),
         "variances": move(out["variances"])[:, :, None],
         "variance_noise": move(out["variance_noise"])[:, :, None],
         "sample": out["sample"],
     }
+    if _sharded(mesh):
+        records = {k: gather(v, mesh) for k, v in records.items()}
+    return records
+
+
+class _FitDraws:
+    """A batched ``fit_guided``'s draws from one generator in its order (x_T,
+    then per step the point batches and the step noise) for all ``b``
+    shapes, with the rows ``rows`` kept; draws the caller injects (whole
+    batch) are taken instead and not drawn. Step i is drawn when either of
+    its draws is first asked for; the fit asks for each step once, in
+    order."""
+
+    def __init__(self, generator, b, p_total, batch_points, latent_shape, rows, dev, *,
+                 x_T=None, noises=None, batch_indices=None):
+        self.gen, self.b, self.p_total, self.batch_points = generator, b, p_total, batch_points
+        self.latent_shape, self.rows, self.dev = tuple(latent_shape), rows, dev
+        self.given_noises, self.given_indices = noises, batch_indices
+        if x_T is None:
+            x_T = torch.randn((b,) + self.latent_shape, generator=generator, device=dev)
+        self.x_T = torch.as_tensor(x_T, dtype=torch.float32, device=dev)[rows]
+        self._step, self._drawn = -1, None
+        self.batch_indices = _Indexed(lambda i: self._draw(i)[0])
+        self.noises = _Indexed(lambda i: self._draw(i)[1])
+
+    def _draw(self, i):
+        if i != self._step:
+            if self.given_indices is None:
+                idx = torch.randint(0, self.p_total, (self.b, self.batch_points), generator=self.gen,
+                                    device=self.dev)
+            else:
+                idx = torch.as_tensor(self.given_indices[i], device=self.dev)
+            if self.given_noises is None:
+                noise = torch.randn((self.b,) + self.latent_shape, generator=self.gen, device=self.dev)
+            else:
+                noise = torch.as_tensor(self.given_noises[i], dtype=torch.float32, device=self.dev)
+            self._step, self._drawn = i, (idx[self.rows], noise[self.rows])
+        return self._drawn
+
+
+class _Indexed:
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __getitem__(self, i):
+        return self.fn(i)
 
 
 def fit_real_shapes_batched(
@@ -221,25 +304,33 @@ def fit_real_shapes_batched(
     x_T: Optional[torch.Tensor] = None,
     noises: Optional[Sequence] = None,
     batch_indices: Optional[Sequence] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> torch.Tensor:
     """Classifier-guided reconstruction of N meshes together: host point
     sampling per mesh (mesh i with ``seed + i``), then one batched
     ``fit_guided`` with a BCE term per shape. Returns normalized latents
     [N, H, W, C]; ``x_T``/``noises``/``batch_indices`` replace the draws as
-    in ``fit_guided``."""
-    pts, occ = [], []
-    for i, m in enumerate(meshes):
-        p, o = sample_training_points(m, fit_cfg, seed=seed + i)
-        pts.append(p)
-        occ.append(o)
+    in ``fit_guided``. With ``mesh`` each rank samples and fits its rows
+    of the meshes, drawing for all N as one rank would and keeping its
+    rows, and the latents are gathered on every rank of the axis (injected
+    draws are then the whole batch's)."""
+    n = len(meshes)
+    rows = mesh.rows(n) if _sharded(mesh) else slice(0, n)
+    pts = [sample_training_points(m, fit_cfg, seed=seed + i) for i, m in list(enumerate(meshes))[rows]]
     dev = half_range.device
-    return fit_guided(
+    if _sharded(mesh):
+        draws = _FitDraws(generator, n, len(pts[0][0]), fit_cfg.batch_points, latent_shape, rows, dev,
+                          x_T=x_T, noises=noises, batch_indices=batch_indices)
+        generator, x_T, noises, batch_indices = None, draws.x_T, draws.noises, draws.batch_indices
+    out = fit_guided(
         sched_fit, model_fn, decoder,
-        torch.as_tensor(np.stack(pts), device=dev), torch.as_tensor(np.stack(occ), device=dev),
+        torch.as_tensor(np.stack([p for p, _ in pts]), device=dev),
+        torch.as_tensor(np.stack([o for _, o in pts]), device=dev),
         half_range, middle, generator, latent_shape=latent_shape,
         batch_points=fit_cfg.batch_points, scale=fit_cfg.grad_scale, clip_denoised=clip_denoised,
         x_T=x_T, noises=noises, batch_indices=batch_indices,
     )
+    return gather(out, mesh) if _sharded(mesh) else out
 
 
 def build_batched_problems(

@@ -281,6 +281,34 @@ class DragEngine:
         return self.device.type == "cuda" and res <= MAX_RES
 
     @torch.no_grad()
+    def march_grid(self, grid: torch.Tensor, walls: Optional[Dict] = None,
+                   t0: Optional[float] = None) -> TriMesh:
+        """March an fp16 occupancy grid decoded on the engine's device (as
+        ``_decode_grid`` gives it) at iso 0 into the unit cube, as
+        ``get_mesh`` does: on the card for a CUDA engine up to 512^3, else
+        copied to the host and marched there. ``walls`` receives the decode
+        (from ``t0``) and march times."""
+        walls = {} if walls is None else walls
+        t0 = time.perf_counter() if t0 is None else t0
+        if self._march_on_device(grid.shape[0]):
+            grid = grid.float()
+            self._sync()
+            walls["decode_device_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh, stats = device_grid_to_mesh(grid, iso=0.0, to_unit=True)
+            walls["device_march_s"] = time.perf_counter() - t0
+            walls.update(stats)
+            walls["impl"] = "device"
+        else:
+            grid = grid.cpu().numpy().astype(np.float32)
+            walls["decode_fetch_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh = grid_to_mesh(grid, iso=0.0, to_unit=True)
+            walls["march_host_s"] = time.perf_counter() - t0
+            walls["impl"] = "host"
+        return mesh
+
+    @torch.no_grad()
     def get_mesh(
         self, latent=None, t: int = 0, smooth: int = 10, res: Optional[int] = None,
         noises: Optional[Sequence] = None,
@@ -301,22 +329,7 @@ class DragEngine:
             walls["finish_steps_s"] = time.perf_counter() - t_all
         res = res or self.config.edit.shape_resolution
         t0 = time.perf_counter()
-        if self._march_on_device(res):
-            grid = self._decode_grid(latent, res).float()
-            self._sync()
-            walls["decode_device_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            mesh, stats = device_grid_to_mesh(grid, iso=0.0, to_unit=True)
-            walls["device_march_s"] = time.perf_counter() - t0
-            walls.update(stats)
-            walls["impl"] = "device"
-        else:
-            grid = self.decode_latent_grid(latent, res=res)
-            walls["decode_fetch_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            mesh = grid_to_mesh(grid, iso=0.0, to_unit=True)
-            walls["march_host_s"] = time.perf_counter() - t0
-            walls["impl"] = "host"
+        mesh = self.march_grid(self._decode_grid(latent, res), walls, t0)
         if smooth > 0:
             t0 = time.perf_counter()
             mesh = mesh.filter_smooth_simple(smooth)
@@ -681,12 +694,14 @@ class DragEngine:
         return x.cpu().numpy()
 
     @torch.no_grad()
-    def morph(self, latent_a, latent_b, n: int = 5) -> np.ndarray:
+    def morph(self, latent_a, latent_b, n: int = 5, mesh=None) -> np.ndarray:
         """Latent-space morph between two shapes: DDIM-encode both
         normalized latents as one batch, slerp at ``n`` uniform mix weights,
         decode every frame as one batch-``n`` DDIM walk (``edit/morph.py``).
-        Returns normalized latents [n, H, W, C]; mesh a frame with
-        ``get_mesh(latents[k][None])``."""
+        With ``mesh`` (a ``parallel.mesh.DataMesh``, ``n`` divisible by its
+        ranks) each rank decodes its frames and every rank of the axis gets
+        all of them. Returns normalized latents [n, H, W, C]; mesh a frame
+        with ``get_mesh(latents[k][None])``."""
         if n < 2:
             raise ValueError(f"need at least 2 morph frames, got {n}")
         shape = self.config.latent_shape
@@ -697,7 +712,7 @@ class DragEngine:
         walls: Dict[str, float] = {}
         frames = morph_latents(self.sched, self.model_fn(), a, b, alphas,
                                clip_denoised=self.config.diffusion.clip_denoised,
-                               walls=walls)
+                               walls=walls, mesh=mesh)
         out = frames.cpu().numpy()
         self.last_phase_walls = {"path": "morph", "frames": n, **walls,
                                  "total_s": time.perf_counter() - t0}

@@ -7,7 +7,8 @@ reverse ODE (``core.diffusion.ddim_reverse_sample_loop``), interpolated there
 with spherical lerp (noise vectors lie near a Gaussian shell, and slerp keeps
 the norm that a linear mix shrinks), and decoded with DDIM at eta 0. Both
 endpoints encode as one batch-2 walk and all K frames decode as one batch-K
-walk.
+walk; over the ranks of a data axis each rank encodes the pair itself and
+decodes its own frames, which are then gathered.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ishapediting_tpu_torch.core.diffusion import ddim_reverse_sample_loop, ddim_sample_loop
 from ishapediting_tpu_torch.core.schedule import Schedule
+from ishapediting_tpu_torch.parallel.mesh import DataMesh, gather, shard_batch
 
 
 def slerp(a: torch.Tensor, b: torch.Tensor, alpha) -> torch.Tensor:
@@ -52,11 +54,15 @@ def morph_latents(
     *,
     clip_denoised: bool = True,
     walls: Optional[Dict[str, float]] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> torch.Tensor:
     """Morph between two clean latents [H, W, C] (or [1, H, W, C]): returns
     the decoded latents [K, H, W, C] at the mix weights ``alphas`` (0 -> a,
     1 -> b; the endpoints are DDIM round trips of the inputs). ``walls``, if
-    given, receives ``encode_s`` and ``decode_s`` (device work included)."""
+    given, receives ``encode_s`` and ``decode_s`` (device work included).
+    With ``mesh`` (K divisible by its ranks) every rank encodes the pair,
+    so the slerp endpoints agree, decodes its own frames, and the frames
+    are gathered on every rank of the axis."""
     x0_a = torch.as_tensor(x0_a, dtype=torch.float32)
     x0_b = torch.as_tensor(x0_b, dtype=torch.float32).to(x0_a.device)
     if x0_a.ndim == 3:
@@ -74,7 +80,11 @@ def morph_latents(
         sync()
         walls["encode_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    if mesh is not None:
+        mixed = shard_batch(mixed, mesh)
     out = ddim_sample_loop(sched, model_fn, mixed, eta=0.0, clip_denoised=clip_denoised)
+    if mesh is not None:
+        out = gather(out, mesh)
     if walls is not None:
         sync()
         walls["decode_s"] = time.perf_counter() - t0

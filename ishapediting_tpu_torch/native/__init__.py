@@ -9,6 +9,7 @@ The NumPy versions in ``geometry/`` are the executable spec.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -25,16 +26,25 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def build_native() -> str:
-    """Compile ``native.cpp`` when the library is missing or older than it."""
-    if os.path.exists(_LIB_PATH) and os.path.getmtime(_SRC) <= os.path.getmtime(_LIB_PATH):
+    """Compile ``native.cpp`` when the library is missing or older than it.
+    Processes that start together build once: the others wait on a file
+    lock, then find the library up to date."""
+
+    def up_to_date():
+        return os.path.exists(_LIB_PATH) and os.path.getmtime(_SRC) <= os.path.getmtime(_LIB_PATH)
+
+    if up_to_date():
         return _LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    subprocess.run(
-        ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-o", tmp, _SRC],
-        check=True, capture_output=True,
-    )
-    os.replace(tmp, _LIB_PATH)  # atomic: concurrent builders never see half a file
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes, or the process dies
+        if not up_to_date():
+            tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+            subprocess.run(
+                ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-o", tmp, _SRC],
+                check=True, capture_output=True,
+            )
+            os.replace(tmp, _LIB_PATH)  # atomic: a reader never sees half a file
     return _LIB_PATH
 
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -111,14 +112,27 @@ def _nvcc() -> str:
 def build_kernels() -> str:
     """Compile every source in ``csrc/`` (one nvcc each, in parallel) and
     link them into one shared library. Returns its path; rebuilds only when
-    a source is newer than the library."""
+    a source is newer than the library. Processes that start together (the
+    ranks of one launch) build once: the others wait on a file lock, then
+    find the library up to date."""
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    if os.path.exists(lib_path) and all(
-        os.path.getmtime(s) <= os.path.getmtime(lib_path) for s in srcs
-    ):
+
+    def up_to_date():
+        return os.path.exists(lib_path) and all(
+            os.path.getmtime(s) <= os.path.getmtime(lib_path) for s in srcs)
+
+    if up_to_date():
         return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes, or the process dies
+        if not up_to_date():
+            _compile_and_link(srcs, lib_path)
+    return lib_path
+
+
+def _compile_and_link(srcs, lib_path) -> None:
     nvcc = _nvcc()
     flags = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     objs, procs = [], []
@@ -142,10 +156,9 @@ def build_kernels() -> str:
     )
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-    os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
+    os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
     for obj in objs:
         os.remove(obj)
-    return lib_path
 
 
 def _load() -> ctypes.CDLL:

@@ -3,8 +3,8 @@
 The reference ships training scaffolding with no training script
 (MixedPrecisionTrainer fp16_util.py:147-231, update_ema nn.py:54-64,
 training_losses gaussian_diffusion.py:884-957; SURVEY.md §2.4); this is the
-counterpart of the JAX package's ``train/trainer.py`` on one device: fp32
-master parameters, the UNet's bf16 torso (weights cast per op, so no loss
+counterpart of the JAX package's ``train/trainer.py``: fp32 master
+parameters, the UNet's bf16 torso (weights cast per op, so no loss
 scaling), gradient clipping by global norm and AdamW as optax computes
 them, and an EMA after each applied update. The forward runs in train mode
 (dropout) and, by default, under ``remat``.
@@ -14,6 +14,14 @@ Each step draws ``t``, the noise and the dropout masks from an explicit
 replayed against another implementation. A step whose loss is not finite
 changes nothing: the check comes before the optimizer, which updates its
 tensors in place.
+
+Over the ranks of a data axis (``mesh=``; the JAX step on a ``shard_batch``ed
+batch with ``replicate``d parameters) every rank takes the global batch,
+draws ``t``, the noise and the masks for all of it and keeps its rows; one
+``all_reduce`` of a flat buffer sums the gradients and the loss terms, so
+the metrics are the global batch's, the non-finite check skips the step on
+every rank at once, and the parameters and the EMA stay bit-equal on every
+rank.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from ishapediting_tpu_torch.config import UNetConfig
 from ishapediting_tpu_torch.core.losses import training_losses, update_ema
 from ishapediting_tpu_torch.core.schedule import Schedule
 from ishapediting_tpu_torch.models.unet import draw_dropout_masks
+from ishapediting_tpu_torch.parallel.mesh import DataMesh, all_reduce_flat
 
 
 @dataclasses.dataclass
@@ -101,13 +110,17 @@ def make_train_step(
     *,
     ema_rate: float = 0.9999,
     remat: bool = True,
+    mesh: Optional[DataMesh] = None,
 ) -> Callable[..., Dict[str, float]]:
     """Build the train step ``step(state, batch, generator=None, *, t=None,
     noise=None, dropout_masks=None) -> metrics``, which updates ``state`` in
     place. ``batch``: [B, H, W, C] normalized latents in [-1, 1] (a NumPy
     array or a tensor); ``t`` [B] respaced timesteps. Metrics are floats:
     the mean loss, mse and vb, and the gradient's global norm before
-    clipping."""
+    clipping. With a ``mesh`` of several ranks, ``batch`` and the injected
+    draws are the global batch's (the same on every rank), and the model
+    starts from ``replicate``d parameters."""
+    sharded = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,
                    t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -123,21 +136,39 @@ def make_train_step(
             noise = torch.randn(batch.shape, generator=generator, device=dev)
         if dropout_masks is None and cfg.dropout > 0:
             dropout_masks = draw_dropout_masks(cfg, b, generator)
+        if sharded:
+            rows = mesh.rows(b)
+            batch = batch[rows]
+            t = torch.as_tensor(t, device=dev)[rows]
+            noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)[rows]
+            if dropout_masks is not None:
+                dropout_masks = [None if m is None else torch.as_tensor(m, device=dev)[rows]
+                                 for m in dropout_masks]
 
         def model_fn(x, t_orig):
             return model(x, t_orig, train=True, dropout_masks=dropout_masks, remat=remat)
 
         state.optimizer.zero_grad(set_to_none=True)
         terms = training_losses(sched, model_fn, batch, t, noise=noise)
-        loss = terms["loss"].mean()
-        loss.backward()
-        with torch.no_grad():
-            metrics = {
-                "loss": float(loss.detach()),
-                "mse": float(terms["mse"].mean()),
-                "vb": float(terms["vb"].mean()),
-                "grad_norm": float(global_norm([p.grad for p in params if p.grad is not None])),
-            }
+        if sharded:
+            # this rank's share of the global mean; the all_reduce sums the shares
+            (terms["loss"].sum() / b).backward()
+            grads = [p.grad for p in params if p.grad is not None]
+            sums = torch.stack([terms[k].detach().sum() for k in ("loss", "mse", "vb")])
+            all_reduce_flat(grads + [sums], mesh)
+            with torch.no_grad():
+                metrics = {k: float(v) / b for k, v in zip(("loss", "mse", "vb"), sums.tolist())}
+                metrics["grad_norm"] = float(global_norm(grads))
+        else:
+            loss = terms["loss"].mean()
+            loss.backward()
+            with torch.no_grad():
+                metrics = {
+                    "loss": float(loss.detach()),
+                    "mse": float(terms["mse"].mean()),
+                    "vb": float(terms["vb"].mean()),
+                    "grad_norm": float(global_norm([p.grad for p in params if p.grad is not None])),
+                }
         if math.isfinite(metrics["loss"]):
             state.optimizer.step()
             update_ema(state.ema_params.values(), params, ema_rate)

@@ -195,6 +195,39 @@ def profile_kv(name: str):
         yield
 
 
+def distributed_mean_kvs(kvs: Dict, counts: Optional[Dict] = None) -> Dict:
+    """Weighted mean of kv dicts across the ranks of the process group (the
+    reference's ``mpi_weighted_mean``, logger.py:414-441; ``counts[k]``
+    weighs rank's ``kvs[k]``, default 1). The identity with one rank. Every
+    rank must log the same keys: a CRC of the sorted key set is compared on
+    all ranks, and a mismatch raises ValueError on every rank, so none is
+    left waiting in a later collective."""
+    import zlib
+
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return dict(kvs)
+    dev = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else None
+    keys = sorted(kvs)
+    digest = float(zlib.crc32("\x00".join(keys).encode()) & 0x7FFFFFFF)
+    spread = torch.tensor([digest, -digest], dtype=torch.float64, device=dev)
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)  # [max, -min] over the ranks
+    if spread[0] != -spread[1]:
+        raise ValueError(
+            "distributed_mean_kvs requires identical kv keys on every rank; log the same "
+            "metrics everywhere (use 0 counts to mask missing values)"
+        )
+    wts = [float((counts or {}).get(k, 1.0)) for k in keys]
+    sums = torch.tensor([float(kvs[k]) * w for k, w in zip(keys, wts)] + wts, dtype=torch.float64,
+                        device=dev)
+    dist.all_reduce(sums)
+    n = len(keys)
+    mean = (sums[:n] / sums[n:]).tolist()
+    return dict(zip(keys, mean))
+
+
 _trace = None
 
 
