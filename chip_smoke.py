@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's generation, editing, serving, training,
-evaluation and data-parallel paths once on one NVIDIA card.
+evaluation, data-parallel and tensor-parallel paths once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --phases 2,7   # the build and some phases: no result line
@@ -34,13 +34,13 @@ Phases, each fatal on failure (exit code 1, no result line):
 4. the main path at the published chairs width (421M parameters, bf16
    torso, random weights from a seed; only step counts are cut):
    ``cli.generate`` with DDIM and with DPM-Solver++(2M), 10 steps, 2 samples
-   at batch 2, 256^3 meshes; then ``DragEngine.update_latent_params`` on a
+   at batch 2, DDIM's two decoded to 256^3 meshes (the DPM run samples with
+   ``--skip_decode``: its decode is DDIM's, cut for time); then ``DragEngine.update_latent_params`` on a
    20-step chain (w_time 10) with its guidance-feature cache and its 256^3
    mesh (marched on the card); then the editing path on that engine: a
    resample drag over the whole w_time walk, ``latent_inversion`` of the
    generated latent, a replay drag, ``fit_real_shape`` of the first mesh
-   (3 guided steps, twice: the second call runs without cuDNN's timing of
-   new shapes); then ``cli.edit`` (200-step generation, a 10-step fast
+   (3 guided steps); then ``cli.edit`` (200-step generation, a 10-step fast
    drag, two 256^3 meshes); then device marching against host marching on
    one 256^3 grid; then each kernel's device ms, launches and summed bound
    per chairs forward at batch 1 and 2
@@ -90,8 +90,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    mesh of the same triangles), then at 256^3, timed; ``cli.eval`` pairs
    mode on phase 4's ``cli.edit`` meshes, original and edited (chamfer,
    hausdorff, IoU, local IoU around the handle of its EditLog);
-   ``solver_mesh_sweep`` on the chairs UNet with the base chain cut to 100
-   (budget 10, one seed: 220 forwards, four 256^3 meshes) and ``cli.eval
+   ``solver_mesh_sweep`` on the chairs UNet with the base chain cut to 50
+   for time (budget 10, one seed: 120 forwards, four 256^3 meshes) and ``cli.eval
    --solver_sweep --random_init --preset tiny`` (the generic kernel); the
    GUI (``gui/app.py``) on the headless Open3D backend over a
    ``DragEngine`` of phase 7's exported model dir (or one written with
@@ -99,13 +99,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    rendered depth, a 2-step drag, save mesh + EditLog and picture, its
    meshes at 64^3; launches exact per run; ``--phases 8`` runs alone (on
    DDIM-10 samples of its own engine, decoded and evaluated in pairs);
-9. two ranks sharing the card (``python -m torch.distributed.run --standalone
-   --nproc_per_node 2 chip_smoke.py --rank-worker <dir>``, gloo: NCCL
-   refuses two ranks on one device), each running in-process: (a)
-   ``cli.generate`` DDIM-10 at chairs width, 2 samples at batch 2 (one
-   trajectory per rank) with ``--sharded_decode`` (each rank decodes,
-   marches and writes its own 256^3 mesh), the gathered latents held to
-   phase 4's one-rank run (relative L2 2e-2); (b) ``decode_grid_sharded``
+9. first, the one-rank reference of phases 9 and 10: phase 4's chairs UNet
+   (the CUDA generator of seed 0) with signal in the weights the ADM init
+   zeroes (with them zero the UNet outputs exactly 0, and any torso or
+   weights on any rank would match it): a forward and DDIM-10 at batch 2,
+   and a servable model dir of it. Then two ranks sharing the card
+   (``python -m torch.distributed.run --standalone --nproc_per_node 2
+   chip_smoke.py --rank-worker <dir>``, gloo: NCCL refuses two ranks on one
+   device), each running in-process: (a) ``cli.generate --model_dir``
+   DDIM-10 at chairs width, 2 samples at batch 2 (one trajectory per rank)
+   with ``--sharded_decode`` (each rank decodes, marches and writes its own
+   256^3 mesh), the gathered latents held to the reference's (relative L2
+   2e-2); (b) ``decode_grid_sharded``
    of the first latent at 256^3, gathered, bit-equal to ``decode_grid``;
    (c) the data-parallel train step on phase 3's bf16 miniature (global
    batch 4, remat, dropout; two steps), parameters and EMA bit-equal across
@@ -116,8 +121,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    and ``morph_latents`` at 2 frames over the ranks, against one rank
    (1e-4); each rank's launches exact and added to the totals; a rank that
    fails fails the phase, with no retry on one rank;
-10. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+10. the model axis and ``cli.serve`` over ranks: two ranks sharing the card
+    (``torchrun ... chip_smoke.py --tp-worker <dir>``, gloo), with the serve
+    requests on torchrun's stdin: (a) each rank builds the reference's
+    chairs UNet on the CPU and cuts it over ``make_mesh(2,
+    model_parallel=2)`` (``shard_params_tp``; at most 0.51 of one rank's
+    parameter bytes each); one forward at batch 2 and DDIM-10 at batch 2 on
+    a ``DragEngine`` over the cut UNet, held to the reference's (relative
+    L2 2e-2), the gathers per forward and their time printed; (b) the fp32 miniature (widths 64-256) cut and whole on
+    each rank: the guidance gradient and a 2-step drag with the recorded
+    noises, without and with remat (1e-4); (c) ``decode_grid_sharded``
+    over the 2-D mesh at 256^3, gathered, bit-equal to ``decode_grid``;
+    (d) ``cli.serve``'s ``main`` with ``--dist_backend gloo`` in each rank:
+    ``init_random`` at chairs width, ``sample`` and a 2-step drag on rank
+    0, ``load_model`` of the reference's model dir, ``generate`` of 2
+    samples at batch 2 over the ranks (DDIM-10, triplanes held to the
+    reference's at 2e-2, meshes at 64^3), ``status``, ``quit``, every
+    response ok; each rank's launches exact and added to the totals;
+11. print the ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
+
+Each phase's start is printed as it begins and each phase's wall before
+the total, to keep the run well inside its watchdog.
 
 Exits non-zero without a result when no CUDA card is present or when the
 port's package is not beside this script.
@@ -149,6 +174,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 KEPT_TRIPLANES = os.path.join(WORK, "kept_triplanes")  # cli.generate's DDIM samples
 KEPT_EDIT = os.path.join(WORK, "kept_edit")  # cli.edit's original.obj, edit00.obj and EditLog
 KEPT_MODELS = os.path.join(WORK, "kept_models")  # cli.train's exported model dir
+SIGNAL_DIR = os.path.join(WORK, "signal_chairs")  # phases 9 and 10's servable model dir (signal_reference)
 TIME_LIMIT_S = 1100  # the run must end well inside 1200 s, build included
 
 TPU_KERNELS = {
@@ -635,7 +661,7 @@ def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", 
 
 
 def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
-            preset_name="chairs", device="cuda", res=256, keep=False):
+            preset_name="chairs", device="cuda", res=256, keep=False, decode=True):
     import numpy as np
 
     from ishapediting_tpu_torch.cli.generate import main as generate
@@ -646,7 +672,7 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
     shutil.rmtree(out, ignore_errors=True)
     argv = ["--random_init", "--preset", preset_name, sampler_flag, "--num_steps", "10",
             "--num_samples", "2", "--batch_size", "2", "--shape_resolution", str(res),
-            "--save_dir", out, "--seed", "0", "--device", device]
+            "--save_dir", out, "--seed", "0", "--device", device] + ([] if decode else ["--skip_decode"])
     say(f"  python -m ishapediting_tpu_torch.cli.generate {' '.join(argv)}")
     buf = io.StringIO()
     sync()
@@ -660,7 +686,6 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
     check_counts(hk, phase, counter.n, per_fwd, totals)
     log = buf.getvalue()
     sample_s = float(next(l for l in log.splitlines() if l.startswith("ddpm time:")).split(":")[1])
-    decode_s = float(next(l for l in log.splitlines() if l.startswith("decode time:")).split(":")[1])
     if samples.shape != (2, h, w, c) or not np.isfinite(samples).all():
         fail(f"{phase}: latents {samples.shape} not finite or of the wrong shape")
     for i in range(2):
@@ -668,15 +693,18 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
         obj = os.path.join(out, "objects", f"{i}.obj")
         if tri.shape != (c, h, w) or not np.isfinite(tri).all():
             fail(f"{phase}: triplane {i} has shape {tri.shape} or is not finite")
-        if not os.path.exists(obj) or os.path.getsize(obj) == 0:
+        if decode and (not os.path.exists(obj) or os.path.getsize(obj) == 0):
             fail(f"{phase}: mesh {i} is missing or empty")
-    size_mb = sum(os.path.getsize(os.path.join(out, "objects", f"{i}.obj")) for i in range(2)) / 1e6
+    decoded = "--skip_decode: no meshes"
+    if decode:
+        decode_s = float(next(l for l in log.splitlines() if l.startswith("decode time:")).split(":")[1])
+        size_mb = sum(os.path.getsize(os.path.join(out, "objects", f"{i}.obj")) for i in range(2)) / 1e6
+        decoded = f"decode+mesh+write {decode_s:.3f} s, OBJ {size_mb:.0f} MB"
     if keep and phase == "ddim":  # phase 8 decodes these planes again
         shutil.copytree(os.path.join(out, "triplanes"), KEPT_TRIPLANES, dirs_exist_ok=True)
     shutil.rmtree(out)  # the 256^3 meshes of random weights are large
     say(f"  {phase}: sampling {sample_s:.3f} s for 2 samples ({2 / sample_s:.3f} samples/s, "
-        f"first run, launch overheads included), decode+mesh+write {decode_s:.3f} s, "
-        f"OBJ {size_mb:.0f} MB, wall {wall:.1f} s")
+        f"first run, launch overheads included), {decoded}, wall {wall:.1f} s")
     return sample_s, samples
 
 
@@ -805,28 +833,26 @@ def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
 
     fit_dir = os.path.join(WORK, "fit")
     fit_steps = 3
-    for run in ("first", "second"):
-        shutil.rmtree(fit_dir, ignore_errors=True)
-        say(f"  DragEngine.fit_real_shape of the first generated mesh ({len(first_mesh.triangles)} "
-            f"triangles), fit_steps {fit_steps}, {engine.config.fit.points_size} points, batch "
-            f"{engine.config.fit.batch_points} ({run} call)")
-        _, wall, _ = counted(hk, counter, per_fwd, totals, f"fit ({run} call)",
-                          lambda: engine.fit_real_shape(mesh=first_mesh, path=fit_dir, seed=0,
-                                                        fit_steps=fit_steps),
-                          fit_steps + -(-w_time // engine.config.edit.inversion_chunk))
-        h, w, c = engine.config.latent_shape
-        tri = np.load(os.path.join(fit_dir, "tri_feat.npy"))
-        recon = os.path.join(fit_dir, "mesh_recon.obj")
-        if tri.shape != (1, c, h, w) or not np.isfinite(tri).all() or os.path.getsize(recon) == 0:
-            fail("fit: tri_feat.npy or mesh_recon.obj not as expected")
-        check_mesh("fit", engine.mesh0, engine.last_mesh_walls)
-        walls = engine.last_phase_walls
-        out[f"fit_{run}_s_per_step"] = walls["guided_s"] / fit_steps
-        out[f"fit_{run}_walls"] = dict(walls)
-        say(f"  fit ({run} call): {walls['guided_s'] / fit_steps:.4f} s/step over {fit_steps} guided "
-            f"steps{' (cuDNN timing the backward shapes of the head included)' if run == 'first' else ''}, "
-            f"inversion {walls['inversion_device_s']:.3f} s, phase walls {fmt_walls(walls)}, "
-            f"wall {wall:.1f} s")
+    shutil.rmtree(fit_dir, ignore_errors=True)
+    say(f"  DragEngine.fit_real_shape of the first generated mesh ({len(first_mesh.triangles)} "
+        f"triangles), fit_steps {fit_steps}, {engine.config.fit.points_size} points, batch "
+        f"{engine.config.fit.batch_points}")
+    _, wall, _ = counted(hk, counter, per_fwd, totals, "fit",
+                         lambda: engine.fit_real_shape(mesh=first_mesh, path=fit_dir, seed=0,
+                                                       fit_steps=fit_steps),
+                         fit_steps + -(-w_time // engine.config.edit.inversion_chunk))
+    h, w, c = engine.config.latent_shape
+    tri = np.load(os.path.join(fit_dir, "tri_feat.npy"))
+    recon = os.path.join(fit_dir, "mesh_recon.obj")
+    if tri.shape != (1, c, h, w) or not np.isfinite(tri).all() or os.path.getsize(recon) == 0:
+        fail("fit: tri_feat.npy or mesh_recon.obj not as expected")
+    check_mesh("fit", engine.mesh0, engine.last_mesh_walls)
+    walls = engine.last_phase_walls
+    out["fit_s_per_step"] = walls["guided_s"] / fit_steps
+    out["fit_walls"] = dict(walls)
+    say(f"  fit: {walls['guided_s'] / fit_steps:.4f} s/step over {fit_steps} guided steps (cuDNN "
+        f"timing the backward shapes of the head included), inversion "
+        f"{walls['inversion_device_s']:.3f} s, phase walls {fmt_walls(walls)}, wall {wall:.1f} s")
     shutil.rmtree(fit_dir)  # the 256^3 OBJ of random weights is large
     return out
 
@@ -913,32 +939,29 @@ def march_compare(engine, x0) -> dict:
     host = grid_to_mesh(host_grid, iso=0.0, to_unit=True)
     host_s = time.perf_counter() - t0
 
-    def sig(m):
-        v, t = m.vertices, m.triangles
-        area = 0.5 * np.linalg.norm(np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]]), axis=1)
-        return np.concatenate([v[t].mean(axis=1), area[:, None]], axis=1)
+    def geometry(m):
+        """Centroids, areas and normals of ``m``'s triangles, and its signed
+        volume off the border and ties and whole, reckoned on the card in
+        float64 (12M triangles: NumPy takes tens of seconds on the host)."""
+        v = torch.as_tensor(m.vertices, dtype=torch.float64, device="cuda")
+        p = v[torch.as_tensor(m.triangles, device="cuda")]  # [F, 3, 3]
+        n = torch.linalg.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        cen = p.mean(dim=1)
+        vox_c = (cen + 1.0) * res / 2.0  # voxel units
+        vox = torch.round(vox_c)
+        tie = ((vox_c - torch.floor(vox_c) - 0.5).abs() < 1e-4).any(dim=1)  # fp32 centroid ties too
+        inner = ((vox > 0) & (vox < res - 1)).all(dim=1) & ~tie
+        triple = (p[:, 0] * torch.linalg.cross(p[:, 1], p[:, 2])).sum(dim=1)
+        same_rule = inner & (n.norm(dim=1) > 1e-12)
+        out = (torch.cat([cen, 0.5 * n.norm(dim=1, keepdim=True)], dim=1).cpu().numpy(), n.cpu().numpy(),
+               same_rule.cpu().numpy(), float(triple[inner].sum()) / 6.0, float(triple.sum()) / 6.0,
+               int((~inner).sum()))
+        del v, p, n, cen, vox_c, vox, tie, inner, triple, same_rule
+        torch.cuda.empty_cache()
+        return out
 
-    def interior_volume(m):
-        v, t = m.vertices, m.triangles
-        cen = (v[t].mean(axis=1) + 1.0) * res / 2.0  # voxel units
-        vox = np.rint(cen)
-        half = (np.abs(cen - np.floor(cen) - 0.5) < 1e-4).any(axis=1)  # fp32 centroid ties too
-        keep = ((vox > 0) & (vox < res - 1)).all(axis=1) & ~half
-        tk = t[keep]
-        vol = float(np.einsum("ij,ij->", v[tk[:, 0]], np.cross(v[tk[:, 1]], v[tk[:, 2]]))) / 6.0
-        full = float(np.einsum("ij,ij->", v[t[:, 0]], np.cross(v[t[:, 1]], v[t[:, 2]]))) / 6.0
-        return vol, full, int((~keep).sum())
-
-    def normals(m):
-        v, t = m.vertices, m.triangles
-        return np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
-
-    sd, sh = sig(dev), sig(host)
-    nd, nh = normals(dev), normals(host)
-    cen = (sd[:, :3] + 1.0) * res / 2.0  # voxel units
-    same_rule = (((np.rint(cen) > 0) & (np.rint(cen) < res - 1)).all(axis=1)
-                 & ~(np.abs(cen - np.floor(cen) - 0.5) < 1e-4).any(axis=1)  # fp32 ties too
-                 & (np.linalg.norm(nd, axis=1) > 1e-12))
+    sd, nd, same_rule, vd, fd, bd = geometry(dev)
+    sh, nh, _, vh, fh, bh = geometry(host)
     worst, checked, compared, flips = 0.0, 0, 0, 0
     for x0s in (-0.5, 0.0, 0.5):
         for a, b, dev_side in ((sd, sh, True), (sh, sd, False)):
@@ -954,8 +977,6 @@ def march_compare(engine, x0) -> dict:
                 dots = (nd[inner] * nh[outer[idx]]).sum(axis=1)
                 compared += int(rule.sum())
                 flips += int((rule & (dots < 0)).sum())
-    vd, fd, bd = interior_volume(dev)
-    vh, fh, bh = interior_volume(host)
     dev_s = min(times)
     say(f"  256^3 march: device {dev_s:.3f} s ({stats['march_cells']} active cells, "
         f"{stats['march_tris']} triangles, {len(dev.vertices)} vertices; runs {times}), host "
@@ -1983,8 +2004,8 @@ def eval_runs(d, pair, edit_log) -> dict:
 
 def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     """``solver_mesh_sweep`` on the chairs UNet and decoder (base chain cut
-    to 100: the dense DDIM reference, ddpm100, ddim10, dpm10; 220 forwards
-    at batch 1, four 256^3 meshes); then ``cli.eval --solver_sweep
+    to 50 for time: the dense DDIM reference, ddpm50, ddim10, dpm10; 120
+    forwards at batch 1, four 256^3 meshes); then ``cli.eval --solver_sweep
     --random_init --preset tiny`` on the card (fp32: the generic attention
     kernel). Launches exact per run."""
     from ishapediting_tpu_torch.cli.eval import main as eval_main
@@ -1994,10 +2015,10 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     cfg = engine.config
-    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, base_steps=100),
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, base_steps=50),
                               edit=dataclasses.replace(cfg.edit, shape_resolution=MESH_RES))
     sweep_engine = DragEngine(cfg, unet=engine.unet, decoder=engine.decoder, stats=engine.stats, device=device)
-    say("  solver_mesh_sweep(chairs, base chain 100, budgets (10,), 1 seed, max_attempts 1)")
+    say("  solver_mesh_sweep(chairs, base chain 50, budgets (10,), 1 seed, max_attempts 1)")
     walls = []
     get_mesh = sweep_engine.get_mesh
 
@@ -2010,10 +2031,10 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     sweep_engine.get_mesh = timed_mesh
     report, wall, _ = counted(hk, counter, per_fwd, totals, "solver sweep (chairs)",
                               lambda: solver_mesh_sweep(sweep_engine, n_seeds=1, budgets=(10,), max_attempts=1),
-                              220)
+                              120)
     out = {"chairs_sweep_wall_s": wall, "chairs_sweep_mesh_s": walls, "chairs_sweep": report}
     ok = (report["seeds"] == 1 and all(report[k]["empty"] == 0 and np.isfinite(report[k]["cd_mean"])
-                                       for k in ("ddpm100", "ddim10", "dpm10")))
+                                       for k in ("ddpm50", "ddim10", "dpm10")))
     say(f"  solver sweep (chairs): {json.dumps(report)}; mesh walls {[round(w, 2) for w in walls]} s, "
         f"wall {wall:.1f} s")
     if not ok:
@@ -2345,9 +2366,10 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     def tag(msg):
         say(f"  [rank {rank}] {msg}")
 
-    # (a) cli.generate at full width, one trajectory per rank, sharded decode
+    # (a) cli.generate at full width over the reference's model dir, one trajectory per rank, sharded decode
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
     out = os.path.join(work, "generate")
-    argv = ["--random_init", "--preset", preset_name, "--use_ddim", "--num_steps", "10", "--num_samples", "2",
+    argv = ["--model_dir", inputs["model_dir"], "--preset", preset_name, "--use_ddim", "--num_steps", "10", "--num_samples", "2",
             "--batch_size", "2", "--seed", "0", "--sharded_decode", "--shape_resolution", str(grid_res),
             "--save_dir", out, "--device", device, "--dist_backend", backend]
     per_fwd = kernel_calls_per_forward(preset(preset_name).unet)
@@ -2410,7 +2432,6 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     torch.cuda.empty_cache()
 
     # (c) the data-parallel train step on the bf16 miniature, global batch 4, remat, dropout
-    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
     cfg, model = dp_model(dev)
     pmesh.replicate(model, mesh)
     state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
@@ -2474,10 +2495,11 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     torch.distributed.destroy_process_group()
 
 
-def ranks_phase(totals, card, ddim_samples, device="cuda") -> dict:
+def ranks_phase(totals, card, ref, device="cuda") -> dict:
     """Phase 9: ``RANKS`` ranks on the one card over gloo, launched once with
     torchrun; their results held to one-rank runs: (a) the gathered DDIM
-    latents to phase 4's (relative L2 2e-2, bf16 batch 1 against batch 2),
+    latents of ``SIGNAL_DIR``'s UNet to ``ref``'s (``signal_reference``;
+    relative L2 2e-2, bf16 batch 1 against batch 2),
     (b) reported by rank 0, (c) parameters bit-equal across ranks, loss
     terms and gradients to the parent's one-rank step at batch 4 (3e-2, the
     bf16 tolerance of phase 7), (d) to the parent's one-rank runs (1e-4)."""
@@ -2494,7 +2516,7 @@ def ranks_phase(totals, card, ddim_samples, device="cuda") -> dict:
     d = os.path.join(WORK, "ranks")
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    inputs = phase9_inputs()
+    inputs = dict(phase9_inputs(), model_dir=SIGNAL_DIR)
     torch.save(inputs, os.path.join(d, "inputs.pt"))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(RANKS),
            os.path.abspath(__file__), "--rank-worker", d, "--dist_backend", "gloo"]
@@ -2523,11 +2545,11 @@ def ranks_phase(totals, card, ddim_samples, device="cuda") -> dict:
         with open(os.path.join(d, f"rank{r}.json")) as f:
             ranks.append(dict(json.load(f), tensors=torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)))
 
-    # (a) the gathered latents against phase 4's one-rank DDIM run
+    # (a) the gathered latents against the one-rank DDIM run of the same weights
     samples = ranks[0]["tensors"]["samples"].numpy()
-    a_err = [rel_l2(samples[i], ddim_samples[i]) for i in range(2)]
+    a_err = [rel_l2(samples[i], ref["ddim"][i]) for i in range(2)]
     same = all(np.array_equal(r["tensors"]["samples"].numpy(), samples) for r in ranks)
-    say(f"  (a) cli.generate over {RANKS} ranks against phase 4's one-rank DDIM-10: relative L2 "
+    say(f"  (a) cli.generate over {RANKS} ranks against the one-rank DDIM-10 of the same weights: relative L2 "
         f"{a_err[0]:.2e}, {a_err[1]:.2e} (tol 2e-2); the ranks' samples equal: {same}")
     if not (max(a_err) <= 2e-2 and same and np.isfinite(samples).all()):
         fail("phase 9 (a): the latents sampled over the ranks disagree with the one-rank run")
@@ -2586,6 +2608,404 @@ def ranks_phase(totals, card, ddim_samples, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model axis and cli.serve over ranks, two ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+TP_LIMIT_S = 450  # a rank of phase 10 still running past this ends itself
+# (b)'s fp32 miniature: its widths reach the cut policy's 256 output features
+MINI_TP = dict(image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
+               attention_ds=(2,), channel_mult=(1, 2, 4), num_head_channels=32, dropout=0.0,
+               compute_dtype="float32")
+MINI_TP_FEAT = 1  # its feature tap: [N, 8, 8, 256]
+MINI_HANDLE = (np.array([[0.2, 0.1, 0.0]], np.float32), np.array([[0.4, 0.1, 0.0]], np.float32))
+TP_BYTES_LIMIT = 0.51  # a rank's share of the chairs UNet's parameter bytes at model_parallel=2
+SERVE_FORWARDS = (32, 10)  # cli.serve's UNet forwards on rank 0 (generate 10, sample 20, drag 2) and rank 1
+
+
+def phase10_inputs() -> dict:
+    """From CPU generators: (a) a batch-2 chairs input with its timesteps;
+    (b) the miniature's input, timesteps and output weights for the
+    guidance gradient, and the drag's x_T and per-step noises."""
+    from ishapediting_tpu_torch.config import preset
+
+    chairs, tiny = preset("chairs").unet, preset("tiny")
+    gen = torch.Generator().manual_seed(10)
+    shape = (1,) + tiny.latent_shape
+    return dict(
+        x=torch.randn((2, chairs.image_size, chairs.image_size, chairs.in_channels), generator=gen),
+        t=torch.tensor([999, 500]),
+        mini_x=torch.randn((2,) + tiny.latent_shape, generator=gen), mini_t=torch.tensor([5, 77]),
+        w_out=torch.randn((2, 16, 16, 12), generator=gen), w_feat=torch.randn((2, 8, 8, 256), generator=gen),
+        x_T=torch.randn(shape, generator=gen), gen_noises=[torch.randn(shape, generator=gen) for _ in range(10)],
+        drag_noises=[torch.randn(shape, generator=gen) for _ in range(2)])
+
+
+def signal_chairs(gen_device, preset_name="chairs"):
+    """Phase 4's chairs UNet (``init_unet_`` from the generator of seed 0 on
+    ``gen_device``) built on the CPU, with signal in the weights the ADM
+    init zeroes (each ResBlock's last conv, each attention projection, the
+    output conv): U(+-0.1 sqrt(3 / fan_in)) from a CPU generator. Phase 4's
+    UNet itself computes an output of exactly 0, which any torso would
+    match."""
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
+
+    model = init_unet_(UNetModel(preset(preset_name).unet), torch.Generator(device=gen_device).manual_seed(0))
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() > 1 and not p.any():
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * (0.1 * math.sqrt(3.0 / p[0].numel())))
+    return model.eval().requires_grad_(False)
+
+
+def signal_reference(device="cuda") -> dict:
+    """Phases 9 and 10's one-rank reference: ``signal_chairs`` on one rank,
+    a forward at batch 2 on phase 10's input and DDIM-10 at batch 2 (seed
+    0, drawn as ``cli.generate`` and ``cli.serve``'s ``generate`` draw it);
+    its UNet and decoder written to ``SIGNAL_DIR`` as a servable model dir
+    with identity statistics (a written triplane is its normalized
+    latent), which the ranks load."""
+    import gc
+
+    from ishapediting_tpu_torch.cli.train import export_model_dir
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.parallel.sampling import sample_batches
+
+    t0 = time.perf_counter()
+    chairs = preset("chairs", 10, use_ddim=True)
+    one = DragEngine(chairs, unet=signal_chairs(device), device=device)
+    inputs = phase10_inputs()
+    with torch.no_grad():
+        forward, _ = one.unet(inputs["x"].to(device), inputs["t"].to(device))
+    ddim = sample_batches(one.sched, one.model_fn(), num_samples=2, batch_size=2,
+                          latent_shape=chairs.latent_shape, seed=0, sampler="ddim",
+                          clip_denoised=chairs.diffusion.clip_denoised, device=device)
+    shutil.rmtree(SIGNAL_DIR, ignore_errors=True)
+    dec_pt = os.path.join(WORK, "signal_decoder.pt")
+    torch.save(one.decoder.state_dict(), dec_pt)
+    export_model_dir(SIGNAL_DIR, one.unet.state_dict(), 0, "chairs", decoder_from=dec_pt,
+                     channels=chairs.latent_shape[-1], plane_channels=chairs.plane_channels)
+    os.remove(dec_pt)
+    out = dict(forward=forward.float().cpu().numpy(), ddim=ddim, wall_s=time.perf_counter() - t0)
+    del one, forward
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (np.isfinite(out["ddim"]).all() and np.abs(out["forward"]).max() > 0):
+        fail("the one-rank reference of phases 9 and 10: its forward is zero or its samples not finite")
+    say(f"  one-rank reference (phase 4's chairs UNet with signal in its zeroed weights): a forward at "
+        f"batch 2 and DDIM-10 at batch 2, written to {os.path.relpath(SIGNAL_DIR, ROOT)}, {out['wall_s']:.1f} s")
+    return out
+
+
+def mini_tp_model():
+    """(b)'s miniature on the CPU, every weight carrying signal, seed 11."""
+    from ishapediting_tpu_torch.config import UNetConfig
+
+    return signal_model(UNetConfig(**MINI_TP), torch.Generator().manual_seed(11))
+
+
+def mini_tp_runs(model, inputs, dev, remat) -> dict:
+    """The guidance gradient (d/dx of weighted output and feature tap) and
+    ``update_latent_params`` + a 2-step ``drag_edit`` with the recorded
+    noises on a ``DragEngine`` (the tiny pipeline, w_time 2) over
+    ``model``."""
+    from ishapediting_tpu_torch.config import UNetConfig, preset
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+
+    x = inputs["mini_x"].to(dev).requires_grad_(True)
+    out, feat = model(x, inputs["mini_t"].to(dev), feat_layer=MINI_TP_FEAT, remat=remat)
+    loss = (out * inputs["w_out"].to(dev)).sum() + (feat * inputs["w_feat"].to(dev)).sum()
+    grad = torch.autograd.grad(loss, x)[0].cpu()
+    tiny = preset("tiny")
+    cfg = dataclasses.replace(tiny, unet=UNetConfig(**MINI_TP),
+                              edit=dataclasses.replace(tiny.edit, w_time=2, feat_layer=MINI_TP_FEAT))
+    eng = DragEngine(cfg, unet=model, seed=0, device=dev, remat=remat)
+    eng.update_latent_params(latent=inputs["x_T"].numpy(), noises=inputs["gen_noises"])
+    eng.drag_edit(*MINI_HANDLE, scale=30.0, cof=0.2, noises=inputs["drag_noises"])
+    return dict(grad=grad, edited=torch.from_numpy(np.asarray(eng.edited_latent)))
+
+
+def mini_tp_launches(remat) -> dict:
+    """Launches of ``mini_tp_runs``: 13 forwards (the gradient's, 10
+    sampling steps, 2 drag steps); under remat the gradient's backward
+    recomputes every block and each drag step's those its tap reaches."""
+    from ishapediting_tpu_torch.config import UNetConfig
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward, kernel_calls_recomputed
+
+    cfg = UNetConfig(**MINI_TP)
+    gn, attn = (13 * c for c in kernel_calls_per_forward(cfg))
+    if remat:
+        head, tap = kernel_calls_recomputed(cfg, -1, head=True), kernel_calls_recomputed(cfg, MINI_TP_FEAT)
+        gn, attn = gn + head[0] + 2 * tap[0], attn + head[1] + 2 * tap[1]
+    return {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": attn}
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid_res=256) -> None:
+    """One rank of phase 10, started by torchrun; every part fatal (exit 1,
+    which ends the other rank through torchrun). Writes its numbers to
+    ``rank<r>.json`` and its tensors to ``rank<r>.pt`` in ``work``; (d)
+    serves the requests on torchrun's stdin."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG: end with torchrun
+    if os.getppid() == 1:
+        sys.exit(1)
+    t = threading.Timer(TP_LIMIT_S, lambda: os._exit(3))
+    t.daemon = True
+    t.start()
+    sys.path.insert(0, ROOT)
+    from ishapediting_tpu_torch.cli import serve
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.edit.fit import latent_to_planes
+    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.ops import hopper_kernels as hk
+    from ishapediting_tpu_torch.ops.triplane import decode_grid
+    from ishapediting_tpu_torch.parallel import mesh as pmesh
+    from ishapediting_tpu_torch.parallel import tensor as ptensor
+    from ishapediting_tpu_torch.parallel.decode import decode_grid_sharded
+    from ishapediting_tpu_torch.parallel.sampling import sample_batches
+    from ishapediting_tpu_torch.utils.device import set_cuda_flags
+
+    t_start = time.perf_counter()
+    pmesh.initialize_distributed(backend, device=device)
+    mesh = pmesh.make_mesh(RANKS, model_parallel=RANKS, device=device)
+    rank, dev = mesh.rank, mesh.device
+    set_cuda_flags()
+    counter = ForwardCounter(UNetModel)
+    totals: dict = {}
+    res: dict = {"rank": rank, "shape": mesh.shape, "backend": backend}
+    tensors: dict = {}
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+
+    def tag(msg):
+        say(f"  [rank {rank}] {msg}")
+
+    # (a) the chairs UNet built on the CPU (phase 4's weights, signal in its zero modules), cut
+    chairs = preset(preset_name, 10, use_ddim=True)
+    per_fwd = kernel_calls_per_forward(chairs.unet)
+    t0 = time.perf_counter()
+    model = signal_chairs(dev, preset_name)
+    res["whole_bytes"] = param_bytes(model)
+    res["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptensor.shard_params_tp(model, mesh)
+    sync()
+    res["cut_s"] = time.perf_counter() - t0
+    res["param_bytes"] = param_bytes(model)
+    res["cut_layers"] = sum(getattr(m, "model_axis", None) is not None for m in model.modules())
+    res["bytes_ratio"] = res["param_bytes"] / res["whole_bytes"]
+    if res["bytes_ratio"] > TP_BYTES_LIMIT:
+        fail(f"rank {rank}: holds {res['param_bytes']} parameter bytes, {res['bytes_ratio']:.4f} of one rank's")
+    engine = DragEngine(chairs, unet=model, seed=0, device=dev)
+    x, tt = inputs["x"].to(dev), inputs["t"].to(dev)
+    with torch.no_grad():
+        (out, _), res["first_forward_s"], peak1 = counted(hk, counter, per_fwd, totals,
+                                                          f"rank {rank} cut forward (first)", lambda: model(x, tt), 1)
+        ptensor.reset_gather_counts()
+        _, res["forward_s"], peak2 = counted(hk, counter, per_fwd, totals, f"rank {rank} cut forward",
+                                             lambda: model(x, tt), 1)
+    res["gathers"], res["gather_s"], res["gather_bytes"] = (ptensor.GATHERS[k] for k in ("calls", "s", "bytes"))
+    tensors["forward"] = out.float().cpu()
+    kw = dict(num_samples=2, batch_size=2, latent_shape=chairs.latent_shape, seed=0, sampler="ddim",
+              clip_denoised=chairs.diffusion.clip_denoised, mesh=mesh)
+    samples, res["ddim_s"], peak3 = counted(hk, counter, per_fwd, totals, f"rank {rank} DDIM-10 (model axis)",
+                                            lambda: sample_batches(engine.sched, engine.model_fn(), **kw), 10)
+    tensors["ddim"] = torch.from_numpy(samples)
+    res["first_peak_gib"], res["peak_gib"] = peak1, max(peak2, peak3)
+    tag(f"chairs UNet cut over the model axis {mesh.shape}: {res['cut_layers']} layers cut, "
+        f"{res['param_bytes']} parameter bytes ({res['bytes_ratio']:.4f} of one rank's {res['whole_bytes']}), "
+        f"built on the CPU {res['build_s']:.1f} s, cut {res['cut_s']:.2f} s; forward at batch 2 "
+        f"{res['first_forward_s']:.2f} s first, then {res['forward_s']:.3f} s with {res['gathers']} gathers ({res['gather_bytes'] / 1e6:.0f} MB) in "
+        f"{res['gather_s']:.3f} s; DDIM-10 at batch 2 {res['ddim_s']:.2f} s; peak {res['first_peak_gib']:.2f} "
+        f"GiB in the first forward (cuDNN's algorithm search), {res['peak_gib']:.2f} GiB after")
+
+    # (c) the first latent decoded over the 2-D mesh at 256^3, against decode_grid
+    planes = latent_to_planes(torch.from_numpy(samples[:1]).to(dev), engine.half_range, engine.middle)
+    pmesh.replicate(engine.decoder, mesh)
+    sync()
+    t0 = time.perf_counter()
+    slab = decode_grid_sharded(engine.decoder, planes, mesh, res=grid_res)
+    sync()
+    res["slab_s"], res["slab_shape"] = time.perf_counter() - t0, list(slab.shape)
+    grid = pmesh.gather_mesh(slab, mesh)
+    if rank == 0:
+        ref = decode_grid(engine.decoder, planes, res=grid_res)
+        res["grid_equal"] = bool(torch.equal(grid, ref))
+        if not res["grid_equal"]:
+            fail(f"decode_grid_sharded over the 2-D mesh differs from decode_grid by "
+                 f"{float((grid - ref).abs().max()):.3g}")
+        tag(f"decode_grid_sharded {grid_res}^3 over {mesh.shape}: slab {res['slab_shape']} in {res['slab_s']:.3f} s; "
+            f"gathered, bit-equal to decode_grid")
+        del ref
+    del engine, model, slab, grid, planes, out
+    torch.cuda.empty_cache()
+
+    # (b) the fp32 miniature's guidance gradient and a 2-step drag, cut and whole, without and with remat
+    cut = ptensor.shard_params_tp(mini_tp_model(), mesh).eval().requires_grad_(False)
+    whole = mini_tp_model().to(dev).eval().requires_grad_(False)
+    for remat in (False, True):
+        for label, m in (("cut", cut), ("whole", whole)):
+            sync()
+            hk.reset_launch_counts()
+            t0 = time.perf_counter()
+            tensors[f"mini_{label}_remat{int(remat)}"] = mini_tp_runs(m, inputs, dev, remat)
+            sync()
+            res[f"mini_{label}_remat{int(remat)}_s"] = time.perf_counter() - t0
+            check_launches(hk, f"rank {rank} miniature gradient + drag ({label}, remat {remat})",
+                           mini_tp_launches(remat), totals)
+    tag("fp32 miniature, guidance gradient + 2-step drag, cut / whole: "
+        + ", ".join(f"remat {r} {res[f'mini_cut_remat{r}_s']:.2f} / {res[f'mini_whole_remat{r}_s']:.2f} s"
+                    for r in (0, 1)))
+    del cut, whole
+
+    # (d) cli.serve over the ranks, on the requests piped to torchrun's stdin
+    sync()
+    hk.reset_launch_counts()
+    counter.n = 0
+    t0 = time.perf_counter()
+    serve.main(["--dist_backend", backend, "--device", device])
+    sync()
+    res["serve_wall_s"] = time.perf_counter() - t0
+    want = SERVE_FORWARDS[min(rank, 1)]
+    if counter.n != want:
+        fail(f"rank {rank}: cli.serve ran {counter.n} UNet forwards, expected {want}")
+    check_counts(hk, f"rank {rank} cli.serve", counter.n, per_fwd, totals)
+    tag(f"cli.serve over the ranks: {counter.n} UNet forwards, wall {res['serve_wall_s']:.1f} s")
+
+    res["totals"] = totals
+    res["wall_s"] = time.perf_counter() - t_start
+    counter.close()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.save(tensors, os.path.join(work, f"rank{rank}.pt"))
+    pmesh.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def tp_phase(totals, card, ref, device="cuda") -> dict:
+    """Phase 10: ``RANKS`` ranks on the one card over gloo, launched once
+    with torchrun, with the session's requests on its stdin; their results
+    held to one-rank runs: (a) the cut forward and DDIM-10 to the same runs
+    of the whole UNet (``ref``, ``signal_reference``; relative L2 2e-2),
+    (b) the cut miniature to the whole one (1e-4), (c) reported by rank 0,
+    (d) every response ok and the triplanes that the server generated from
+    ``SIGNAL_DIR`` to ``ref``'s DDIM-10 (2e-2)."""
+    import gc
+    import signal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = os.path.join(WORK, "model_axis")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    inputs = phase10_inputs()
+    torch.save(inputs, os.path.join(d, "inputs.pt"))
+    sdir = os.path.join(d, "served")
+    reqs = [
+        {"cmd": "init_random", "preset": "chairs", "num_steps": 20, "w_time": 10, "feat_layer": 8,
+         "shape_resolution": 64, "seed": 0},
+        {"cmd": "sample", "seed": 0},
+        {"cmd": "drag", "sources": HANDLE[0].tolist(), "targets": HANDLE[1].tolist(), "edit_steps": 2},
+        {"cmd": "load_model", "model_dir": SIGNAL_DIR, "preset": "chairs", "num_steps": 20},
+        {"cmd": "generate", "num_samples": 2, "batch_size": 2, "sampler": "ddim", "num_steps": 10, "seed": 0,
+         "out_dir": sdir, "decode": True, "shape_resolution": 64, "smooth": 0},
+        {"cmd": "status"},
+        {"cmd": "quit"},
+    ]
+    req_path = os.path.join(d, "requests.jsonl")
+    with open(req_path, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in reqs))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(RANKS),
+           os.path.abspath(__file__), "--tp-worker", d, "--dist_backend", "gloo"]
+    say(f"  {' '.join(cmd[1:])} < {os.path.relpath(req_path, ROOT)}")
+    log_path = os.path.join(d, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log, open(req_path) as stdin:
+        proc = subprocess.Popen(cmd, stdin=stdin, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+                                start_new_session=True)
+        _CHILDREN.append(proc)
+        try:
+            rc = proc.wait(timeout=TP_LIMIT_S + 60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            rc = "timeout"
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    for line in lines:
+        if line.startswith("  [rank") or "launches in rank" in line:
+            say(line)
+    if rc != 0:
+        say("\n".join(lines[-60:]))
+        fail(f"phase 10: the ranks ended with {rc}")
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            ranks.append(dict(json.load(f), tensors=torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)))
+
+    # (a) the cut forward and DDIM-10 against the whole UNet's on one rank
+    fwd_err = [rel_l2(r["tensors"]["forward"].numpy(), ref["forward"]) for r in ranks]
+    ddim_err = [rel_l2(r["tensors"]["ddim"][i].numpy(), ref["ddim"][i]) for r in ranks for i in range(2)]
+    say(f"  (a) chairs UNet over the model axis: forward at batch 2 against the whole UNet's on one rank, "
+        f"relative L2 {max(fwd_err):.2e}; DDIM-10 latents {max(ddim_err):.2e} (tol 2e-2); "
+        f"{ranks[0]['gathers']} gathers per forward; parameter bytes per rank "
+        f"{[r['param_bytes'] for r in ranks]} ({ranks[0]['bytes_ratio']:.4f} of one rank's, limit 0.51)")
+    if not (max(fwd_err) <= 2e-2 and max(ddim_err) <= 2e-2):
+        fail("phase 10 (a): the forward or DDIM-10 over the model axis disagrees with one rank")
+
+    # (b) the miniature cut against whole, on each rank
+    b_err = {}
+    for remat in (0, 1):
+        for k in ("grad", "edited"):
+            b_err[f"{k}_remat{remat}"] = max(rel_l2(r["tensors"][f"mini_cut_remat{remat}"][k].numpy(),
+                                                    r["tensors"][f"mini_whole_remat{remat}"][k].numpy())
+                                             for r in ranks)
+    say(f"  (b) fp32 miniature over the model axis against whole (relative L2, tol 1e-4): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in b_err.items()))
+    if not max(b_err.values()) <= 1e-4:
+        fail("phase 10 (b): the guidance gradient or drag over the model axis disagrees with one rank")
+
+    # (d) the serve session: every response ok, the served model's triplanes against the one-rank reference
+    msgs = [json.loads(line) for line in lines if line.startswith("{")]
+    responses = [m for m in msgs if "cmd" in m]
+    if [m["cmd"] for m in responses] != [r["cmd"] for r in reqs] or not all(m["ok"] for m in responses):
+        fail(f"phase 10 (d): cli.serve over the ranks answered {responses}")
+    serve_err = [rel_l2(np.load(os.path.join(sdir, "triplanes", f"{i}.npy")).transpose(1, 2, 0), ref["ddim"][i])
+                 for i in range(2)]
+    gen_resp = next(m for m in responses if m["cmd"] == "generate")
+    say(f"  (d) cli.serve over {RANKS} ranks: {len(responses)} responses, all ok; generate sampled "
+        f"{gen_resp['sample_s']:.2f} s, decoded 2 meshes at 64^3 in {gen_resp['decode_s']:.2f} s; triplanes "
+        f"of the loaded model against its one-rank DDIM-10 relative L2 {max(serve_err):.2e} (tol 2e-2); session wall "
+        f"{ranks[0]['serve_wall_s']:.1f} s")
+    if not max(serve_err) <= 2e-2:
+        fail("phase 10 (d): the served triplanes disagree with the one-rank samples of the same weights")
+
+    for r in ranks:
+        for k, v in r["totals"].items():
+            totals[k] = totals.get(k, 0) + v
+    shutil.rmtree(d)
+    out = dict(wall_s=wall, forward_rel_l2=fwd_err, ddim_rel_l2=ddim_err, mini_rel_l2=b_err, serve_rel_l2=serve_err,
+               serve_responses=[{k: v for k, v in m.items() if k in ("cmd", "ok", "sample_s", "decode_s")}
+                                for m in responses],
+               ranks=[{k: v for k, v in r.items() if k != "tensors"} for r in ranks])
+    say(f"  ({card}) phase 10 over {RANKS} ranks sharing the card (gloo): "
+        + "; ".join(f"rank {r['rank']}: {r['param_bytes']} parameter bytes, peak {r['peak_gib']:.2f} GiB in (a), "
+                    f"forward {r['forward_s']:.3f} s ({r['gathers']} gathers, {r['gather_s']:.3f} s), DDIM-10 "
+                    f"{r['ddim_s']:.2f} s, serve {r['serve_wall_s']:.1f} s, wall {r['wall_s']:.1f} s" for r in ranks)
+        + f"; phase wall {wall:.1f} s")
+    return out
+
+
 def card_phase(hk, dev, counter, totals) -> dict:
     """Phase 3: the whole UNet on the card against the CPU, the tiny
     engine, and the edit gate."""
@@ -2616,8 +3036,8 @@ def main_path(hk, counter, totals, keep=False) -> dict:
     chairs = preset("chairs", 20)
     per_fwd = kernel_calls_per_forward(chairs.unet)
     say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
-    ddim_s, ddim_samples = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim", keep=keep)
-    run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm")
+    ddim_s, _ = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim", keep=keep)
+    run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm", decode=False)
     chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
         chairs.edit, w_time=10, feat_layer=8, shape_resolution=256))
     engine, lat, gen_wall = run_engine(hk, counter, per_fwd, totals, chairs,
@@ -2627,7 +3047,7 @@ def main_path(hk, counter, totals, keep=False) -> dict:
     say(f"  seed -> edited mesh on the engine: {gen_wall + edits['drag_resample_walls']['total_s']:.1f} s "
         f"(20-step generation with its 256^3 mesh, then a 10-step drag with its 256^3 mesh)")
     edits["cli_edit_wall_s"] = run_cli_edit(hk, counter, per_fwd, totals, keep=keep)
-    return dict(chairs=chairs, per_fwd=per_fwd, ddim_s=ddim_s, ddim_samples=ddim_samples, engine=engine, lat=lat,
+    return dict(chairs=chairs, per_fwd=per_fwd, ddim_s=ddim_s, engine=engine, lat=lat,
                 first_mesh=first_mesh, edits=edits)
 
 
@@ -2635,21 +3055,24 @@ def main() -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description="Drive the port once on one CUDA card")
-    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8,9",
+    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8,9,10",
                         help="phases to run after the build (a partial run prints no result line)")
     parser.add_argument("--rank-worker", type=str, default=None,
                         help="run as one rank of phase 9 (torchrun starts these), writing into this dir")
+    parser.add_argument("--tp-worker", type=str, default=None,
+                        help="run as one rank of phase 10 (torchrun starts these), writing into this dir")
     parser.add_argument("--dist_backend", type=str, default="gloo",
-                        help="phase 9's process-group backend (ranks sharing one card need gloo)")
+                        help="phases 9 and 10's process-group backend (ranks sharing one card need gloo)")
     args = parser.parse_args()
     if args.rank_worker:
         rank_worker(args.rank_worker, args.dist_backend)
         return
+    if args.tp_worker:
+        tp_worker(args.tp_worker, args.dist_backend)
+        return
     phases = {int(p) for p in args.phases.split(",")}
     if 5 in phases and 4 not in phases:
         parser.error("phase 5 runs on phase 4's engine")
-    if 9 in phases and 4 not in phases:
-        parser.error("phase 9 holds its samples to phase 4's DDIM run")
     watchdog()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "ishapediting_tpu_torch")):
@@ -2685,44 +3108,76 @@ def main() -> None:
     for kept in (KEPT_TRIPLANES, KEPT_EDIT, KEPT_MODELS):
         shutil.rmtree(kept, ignore_errors=True)
 
+    starts = {"1": 0.0}
+
+    def begin(phase):
+        """Note when a phase starts, so that the run's time can be read per phase."""
+        starts[phase] = time.perf_counter() - t_start
+        say(f"  (phase {phase} starts {starts[phase]:.1f} s into the run)")
+
+    def phase_walls():
+        marks = sorted(starts.items(), key=lambda kv: kv[1]) + [("end", time.perf_counter() - t_start)]
+        return {a[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}
+
     report = {}
     if 2 in phases:
+        begin("2")
         report = kernel_checks(hk, dev)
         backward_checks(hk, dev, report)
     counter = ForwardCounter(UNetModel)
     totals: dict = {}
     if 3 in phases:
+        begin("3")
         gate = card_phase(hk, dev, counter, totals)
     if 4 in phases:
+        begin("4")
         mp = main_path(hk, counter, totals, keep=8 in phases)
         engine, lat, edits = mp["engine"], mp["lat"], mp["edits"]
     if 5 in phases:
+        begin("5")
         say("[5] serving surfaces on the chairs engine (direct fit, morph, cli.morph, cli.batch_edit, "
             "batched drag with and without remat, batched fit, cli.serve)")
         serving = serving_runs(hk, counter, mp["per_fwd"], totals, engine, mp["first_mesh"], card)
     if 6 in phases:
+        begin("6")
         say("[6] heads-by-count UNet (UNetConfig.from_reference_args(num_head_channels=-1)) at chairs "
             "width: DDIM-10 at batch 2, update_latent_params, a 2-step drag")
         hbc = heads_by_count_runs(hk, counter, totals)
     if 7 in phases:
+        begin("7")
         say("[7] training: a train step card against CPU, remat against no remat, decoder training, "
             "cli.train at chairs width (batch 8, checkpoint, resume, export) -> serve, an overfit")
         training = training_runs(hk, counter, totals, card, keep=8 in phases)
     if 8 in phases:
+        begin("8")
         say("[8] the remaining CLIs and host modules: cli.decode (card against CPU at 128^3, then 256^3), "
             "cli.eval on cli.edit's two 256^3 meshes, the solver sweep (chairs, then cli.eval "
             "--solver_sweep tiny), the headless GUI over DragEngine (create, pick, drag, save)")
         host = host_module_runs(hk, counter, totals, mp if 4 in phases else None)
+    if 9 in phases or 10 in phases:
+        begin("9-10 reference")
+        say("[9-10] the one-rank reference of phases 9 and 10")
+        ref = signal_reference()
     if 9 in phases:
+        begin("9")
         say(f"[9] {RANKS} ranks sharing the card over gloo (one torchrun launch): cli.generate DDIM-10 at "
             "chairs width with --sharded_decode, decode_grid_sharded at 256^3, the data-parallel train step, "
             "the tiny batched drag and morph over the ranks")
-        ranks = ranks_phase(totals, card, mp["ddim_samples"])
+        ranks = ranks_phase(totals, card, ref)
+    if 10 in phases:
+        begin("10")
+        say(f"[10] {RANKS} ranks sharing the card over gloo (one torchrun launch): the chairs UNet cut over "
+            "the model axis (forward, DDIM-10), the fp32 miniature's guidance gradient and drag, "
+            "decode_grid_sharded over the 2-D mesh, cli.serve over the ranks")
+        model_axis = tp_phase(totals, card, ref)
+    shutil.rmtree(SIGNAL_DIR, ignore_errors=True)
     counter.close()
-    if phases != {2, 3, 4, 5, 6, 7, 8, 9}:
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10}:
+        say(f"phase walls (s): {json.dumps(phase_walls())}")
         say(f"partial run (phases {sorted(phases)}): total {time.perf_counter() - t_start:.1f} s; "
             f"launches {totals}; no result line")
         return
+    begin("4 (end): march comparison and accounting")
     edits["march"] = march_compare(engine, lat)
     per_forward = forward_accounting(engine)
     fwd_ms = {b: unet_forward_ms(engine, b) for b in (1, 2)}
@@ -2755,6 +3210,8 @@ def main() -> None:
     say("training: " + json.dumps(training, default=float))
     say("host modules: " + json.dumps(host, default=float))
     say("ranks: " + json.dumps(ranks, default=float))
+    say("model axis: " + json.dumps(model_axis, default=float))
+    say(f"phase walls (s): {json.dumps(phase_walls())}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -16,18 +16,34 @@ run unguided. ``init_random`` and ``load_model`` build the engine on the
 server's device (``--device``, CUDA by default); ``init_random`` also takes
 ``w_time``, ``feat_layer`` and ``shape_resolution`` to cut a preset.
 
+Under ``torchrun`` rank 0 alone reads the requests and writes the responses;
+the other ranks never print. ``init_random``, ``load_model``, ``generate``
+and ``quit`` run on every rank: rank 0 broadcasts each of them (its length,
+then its bytes), every rank builds the engine with rank 0's weights
+(``replicate``), and ``generate`` samples each batch over the ranks of a
+data axis (``sample_batches``), after which rank 0 writes the triplanes and
+decodes and writes the meshes one after another. An error flag all-reduced
+after each of these commands makes rank 0 answer ``{"ok": false}`` when any
+rank failed. Every other command runs on rank 0 alone while the others wait
+for the next one, so a ``stop`` needs no collective; the end of the input
+ends every rank, as ``quit`` does.
+
 Usage::
 
     python -m ishapediting_tpu_torch.cli.serve [--device cpu]
     echo '{"cmd": "ping"}' | python -m ishapediting_tpu_torch.cli.serve
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m ishapediting_tpu_torch.cli.serve --dist_backend gloo < requests.jsonl
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import io
 import json
+import logging
 import os
 import select
 import sys
@@ -35,6 +51,15 @@ import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+# the commands every rank runs; rank 0 runs the others alone
+COLLECTIVE = frozenset({"init_random", "load_model", "generate", "quit"})
+# how long the other ranks wait for rank 0's next request (a server idles)
+IDLE_TIMEOUT = datetime.timedelta(days=7)
+
+log = logging.getLogger(__name__)
 
 
 class EditServer:
@@ -43,7 +68,14 @@ class EditServer:
     end the server."""
 
     def __init__(self, device: Optional[str] = None):
+        """Under a process group of several ranks every rank makes one (a
+        mesh over the world's ranks, on this rank's device)."""
+        from ishapediting_tpu_torch.parallel import mesh as pmesh
+
         self.device = device
+        self.mesh = pmesh.make_mesh(device=device) if pmesh.world()[0] > 1 else None
+        if self.mesh is not None:
+            self.device = self.mesh.device
         self.engine = None
         self.last_drag: Optional[Dict] = None
         self.edit_count = 0
@@ -62,6 +94,19 @@ class EditServer:
             return out
         except Exception as e:  # noqa: BLE001 - protocol errors must not kill the server
             return {"ok": False, "cmd": cmd, "error": f"{type(e).__name__}: {e}"}
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank answers: rank 0, or the only process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _replicate(self):
+        """Rank 0's weights on every rank."""
+        from ishapediting_tpu_torch.parallel.mesh import replicate
+
+        if self.mesh is not None:
+            replicate(self.engine.unet, self.mesh)
+            replicate(self.engine.decoder, self.mesh)
 
     def _require_engine(self):
         if self.engine is None:
@@ -95,6 +140,7 @@ class EditServer:
         if cut:
             cfg = dataclasses.replace(cfg, edit=dataclasses.replace(cfg.edit, **cut))
         self.engine = DragEngine(cfg, seed=int(req.get("seed", 0)), device=self.device)
+        self._replicate()
         return {"preset": req.get("preset", "tiny")}
 
     def _cmd_load_model(self, req, emit):
@@ -102,6 +148,7 @@ class EditServer:
 
         cfg = self._preset(req) if "preset" in req else None
         self.engine = DragEngine.from_model_dir(req["model_dir"], config=cfg, device=self.device)
+        self._replicate()
         return {"model_dir": req["model_dir"]}
 
     def _cmd_status(self, req, emit):
@@ -174,7 +221,8 @@ class EditServer:
         ``num_steps`` respaces the base chain per request (dpm on the
         log-SNR grid). Streams a gen_batch event per batch and a gen_mesh
         event per mesh; ``out_dir`` gets triplanes/{i}.npy (NCHW, physical
-        scale) and objects/{i}.obj."""
+        scale) and objects/{i}.obj. Over several ranks each batch is
+        sampled over a data axis; rank 0 alone writes and decodes."""
         from ishapediting_tpu_torch.core.schedule import make_schedule
         from ishapediting_tpu_torch.parallel.sampling import sample_batches
 
@@ -212,6 +260,8 @@ class EditServer:
             "realized_steps": int(sched.num_timesteps),
             "sample_s": round(time.perf_counter() - t0, 3),
         }
+        if not self.lead:
+            return resp_out
         out_dir = req.get("out_dir")
         if out_dir:
             phys = samples * np.asarray(eng.stats.half_range) + np.asarray(eng.stats.middle)
@@ -337,11 +387,66 @@ class EditServer:
         }
 
 
+class _Requests:
+    """Rank 0's collective requests to the other ranks, over a gloo group of
+    the world whose ranks may wait ``IDLE_TIMEOUT`` for the next one."""
+
+    def __init__(self):
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.group = dist.new_group(list(range(self.world)), timeout=IDLE_TIMEOUT, backend="gloo")
+
+    def send(self, req: Optional[Dict]) -> None:
+        """Rank 0: broadcast ``req`` (None: the end of the input)."""
+        data = b"" if req is None else json.dumps(req).encode()
+        dist.broadcast(torch.tensor([len(data) if req is not None else -1]), 0, group=self.group)
+        if data:
+            dist.broadcast(torch.frombuffer(bytearray(data), dtype=torch.uint8), 0, group=self.group)
+
+    def receive(self) -> Optional[Dict]:
+        """Another rank: rank 0's next request, None at the end."""
+        n = torch.zeros(1, dtype=torch.int64)
+        dist.broadcast(n, 0, group=self.group)
+        if int(n) < 0:
+            return None
+        data = torch.empty(int(n), dtype=torch.uint8)
+        dist.broadcast(data, 0, group=self.group)
+        return json.loads(bytes(data.numpy()))
+
+    def settle(self, resp: Dict) -> Dict:
+        """All-reduce every rank's error flag after a collective command;
+        rank 0's response is ``ok: false`` if any rank failed."""
+        flags = torch.zeros(self.world, dtype=torch.int64)
+        flags[self.rank] = int(not resp.get("ok", False))
+        dist.all_reduce(flags, group=self.group)
+        failed = [r for r in range(self.world) if flags[r]]
+        if self.rank != 0 and not resp.get("ok", False):
+            log.warning("rank %d: %s failed: %s", self.rank, resp.get("cmd"), resp.get("error"))
+        if failed and resp.get("ok", False):
+            resp = {"ok": False, "cmd": resp.get("cmd"), "error": f"{resp.get('cmd')} failed on ranks {failed}"}
+        return resp
+
+
+def _follow(server: EditServer, requests: _Requests) -> None:
+    """A rank other than 0: run rank 0's collective requests until the end
+    of its input or ``quit``; print nothing."""
+    while True:
+        req = requests.receive()
+        if req is None:
+            return
+        if requests.settle(server.handle(req)).get("_quit"):
+            return
+
+
 def serve_loop(instream, outstream, server: Optional[EditServer] = None) -> None:
     """Blocking request loop. Streams events; a ``stop`` line sent during a
     drag is read between progress events through ``select`` on
-    ``instream``; any other line read then waits its turn."""
+    ``instream``; any other line read then waits its turn. Under a process
+    group of several ranks, every rank calls it: rank 0 reads ``instream``
+    and drives the others, which touch neither stream."""
     server = server or EditServer()
+    requests = _Requests() if server.mesh is not None else None
+    if requests is not None and requests.rank != 0:
+        return _follow(server, requests)
     pending = []
 
     def write(obj):
@@ -369,6 +474,8 @@ def serve_loop(instream, outstream, server: Optional[EditServer] = None) -> None
         else:
             line = instream.readline()
             if not line:
+                if requests is not None:
+                    requests.send(None)
                 return
             line = line.strip()
             if not line:
@@ -378,7 +485,12 @@ def serve_loop(instream, outstream, server: Optional[EditServer] = None) -> None
             except json.JSONDecodeError as e:
                 write({"ok": False, "error": f"bad json: {e}"})
                 continue
+        collective = requests is not None and req.get("cmd") in COLLECTIVE
+        if collective:
+            requests.send(req)
         resp = server.handle(req, emit=emit)
+        if collective:
+            resp = requests.settle(resp)
         quit_now = resp.pop("_quit", False)
         write(resp)
         if quit_now:
@@ -402,8 +514,16 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--cpu", action="store_true",
                     help="the JAX package's flag: the same as --device cpu")
+    ap.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                    help="process-group backend under torchrun (default: nccl on cuda, gloo on "
+                         "cpu); ranks that share one card need gloo")
     args = ap.parse_args(argv)
-    serve_loop(sys.stdin, sys.stdout, EditServer(device="cpu" if args.cpu else args.device))
+    from ishapediting_tpu_torch.parallel import mesh as pmesh
+
+    device = "cpu" if args.cpu else args.device
+    if pmesh.launched():
+        pmesh.initialize_distributed(args.dist_backend, device=device)
+    serve_loop(sys.stdin, sys.stdout, EditServer(device=device))
 
 
 if __name__ == "__main__":

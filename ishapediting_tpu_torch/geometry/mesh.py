@@ -67,9 +67,11 @@ class TriMesh:
     # -- derived quantities -------------------------------------------------
 
     def triangle_areas(self) -> np.ndarray:
-        v, t = self.vertices, self.triangles
-        cross = np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
-        return 0.5 * np.linalg.norm(cross, axis=1)
+        """``0.5 * |cross(v1 - v0, v2 - v0)|`` per triangle, computed in
+        native C++ with NumPy's operations in NumPy's order (bit-equal)."""
+        from ishapediting_tpu_torch.native import native_triangle_areas
+
+        return native_triangle_areas(self.vertices, self.triangles)
 
     def triangle_normals(self) -> np.ndarray:
         v, t = self.vertices, self.triangles

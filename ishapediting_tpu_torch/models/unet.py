@@ -34,6 +34,7 @@ kernels included.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -236,6 +237,36 @@ class GroupNorm32(nn.Module):
         return group_norm(x, self.weight, self.bias)
 
 
+def dense(mod: nn.Module, x: torch.Tensor, **conv_kw) -> torch.Tensor:
+    """``mod``'s product on ``x``: ``conv2d`` (NHWC) for an ``nn.Conv2d``,
+    ``linear`` for an ``nn.Linear`` or an attention block's 1x1
+    ``nn.Conv1d``. A layer that ``parallel/tensor.py::shard_params_tp`` cut
+    computes this rank's slice of the output features and gathers the
+    slices over the model axis; any other runs the product alone."""
+    w = mod.weight
+    if isinstance(mod, nn.Conv2d):
+        product = functools.partial(conv2d, **conv_kw)
+    else:
+        product, w = linear, (w[:, :, 0] if w.dim() == 3 else w)
+    axis = getattr(mod, "model_axis", None)
+    if axis is None:
+        return product(x, w, mod.bias)
+    from ishapediting_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
+
+    return gather_from_model(product(copy_to_model(x, axis), w, mod.bias), axis)
+
+
+def embed(mod: nn.Embedding, y: torch.Tensor) -> torch.Tensor:
+    """The rows ``y`` of ``mod``'s table; a table that ``shard_params_tp``
+    cut looks up this rank's columns and gathers them over the model axis."""
+    axis = getattr(mod, "model_axis", None)
+    if axis is None:
+        return mod.weight[y]
+    from ishapediting_tpu_torch.parallel.tensor import gather_from_model
+
+    return gather_from_model(mod.weight[y], axis)
+
+
 def _gn_silu(norm: GroupNorm32, h: torch.Tensor, film=None) -> torch.Tensor:
     return group_norm_silu(h.contiguous(), norm.weight, norm.bias, film=film)
 
@@ -266,11 +297,8 @@ class ResBlock(nn.Module):
             hh, x = nearest_upsample_2x(hh), nearest_upsample_2x(x)
         elif self.layer.updown == "down":
             hh, x = avg_pool_2x(hh), avg_pool_2x(x)
-        c1 = self.in_layers[2]
-        hh = conv2d(hh, c1.weight, c1.bias, padding=1)
-
-        el = self.emb_layers[1]
-        emb_out = linear(silu(emb), el.weight, el.bias).to(hh.dtype)
+        hh = dense(self.in_layers[2], hh, padding=1)
+        emb_out = dense(self.emb_layers[1], silu(emb)).to(hh.dtype)
         if self.layer.scale_shift:
             scale, shift = emb_out.chunk(2, dim=-1)
             hh = _gn_silu(self.out_layers[0], hh, film=(scale, shift))
@@ -278,11 +306,9 @@ class ResBlock(nn.Module):
             hh = _gn_silu(self.out_layers[0], hh + emb_out[:, None, None, :])
         if keep is not None:  # the reference's nn.Dropout at out_layers[2]
             hh = torch.where(keep, hh / torch.tensor(1.0 - p, dtype=hh.dtype), 0.0)
-        c2 = self.out_layers[3]
-        hh = conv2d(hh, c2.weight, c2.bias, padding=1)
+        hh = dense(self.out_layers[3], hh, padding=1)
         if self.layer.in_ch != self.layer.out_ch:
-            sk = self.skip_connection
-            x = conv2d(x, sk.weight, sk.bias)
+            x = dense(self.skip_connection, x)
         return x + hh
 
 
@@ -301,9 +327,8 @@ class AttentionBlock(nn.Module):
     def forward(self, h: torch.Tensor, emb: torch.Tensor = None) -> torch.Tensor:
         n, hh, ww, c = h.shape
         normed = self.norm(h).reshape(n, hh * ww, c)
-        qkv = linear(normed, self.qkv.weight[:, :, 0], self.qkv.bias)
-        att = qkv_attention(qkv, self.heads)
-        out = linear(att, self.proj_out.weight[:, :, 0], self.proj_out.bias)
+        att = qkv_attention(dense(self.qkv, normed), self.heads)
+        out = dense(self.proj_out, att)
         return h + out.reshape(n, hh, ww, c)
 
 
@@ -316,7 +341,7 @@ class Downsample(nn.Module):
     def forward(self, h, emb=None):
         if not hasattr(self, "op"):
             return avg_pool_2x(h)
-        return conv2d(h, self.op.weight, self.op.bias, stride=2, padding=1)
+        return dense(self.op, h, stride=2, padding=1)
 
 
 class Upsample(nn.Module):
@@ -329,12 +354,12 @@ class Upsample(nn.Module):
         h = nearest_upsample_2x(h)
         if not hasattr(self, "conv"):
             return h
-        return conv2d(h, self.conv.weight, self.conv.bias, padding=1)
+        return dense(self.conv, h, padding=1)
 
 
 class InputConv(nn.Conv2d):
     def forward(self, h, emb=None):
-        return conv2d(h, self.weight, self.bias, padding=1)
+        return dense(self, h, padding=1)
 
 
 def _make_layer(layer: Layer, emb_ch: int) -> nn.Module:
@@ -395,12 +420,11 @@ class UNetModel(nn.Module):
                 f"feat_layer {feat_layer} out of range "
                 f"(model has {len(self.output_blocks)} output blocks)"
             )
-        t0, t2 = self.time_embed[0], self.time_embed[2]
         emb = timestep_embedding(timesteps, cfg.model_channels)
-        emb = linear(silu(linear(emb, t0.weight, t0.bias)), t2.weight, t2.bias)
+        emb = dense(self.time_embed[2], silu(dense(self.time_embed[0], emb)))
         if cfg.num_classes is not None:
             assert y is not None, "class-conditional model requires y"
-            emb = emb + self.label_emb.weight[y]
+            emb = emb + embed(self.label_emb, y)
 
         p = cfg.dropout if train else 0.0
         if p > 0.0 and dropout_masks is None:
@@ -439,8 +463,7 @@ class UNetModel(nn.Module):
                 feat = h.float()
 
         h = _gn_silu(self.out[0], h.to(x.dtype))
-        c = self.out[2]
-        out = conv2d(h, c.weight, c.bias, padding=1)
+        out = dense(self.out[2], h, padding=1)
         return out.to(x.dtype), feat
 
 
@@ -453,14 +476,15 @@ _ZERO_SUFFIXES = (".out_layers.3", ".proj_out")
 
 @torch.no_grad()
 def init_unet_(model: UNetModel, generator: torch.Generator) -> UNetModel:
-    """Re-initialize every parameter in place from ``generator`` (which must
-    live on the parameters' device), with the JAX package's distributions:
+    """Re-initialize every parameter in place from ``generator``, drawn on
+    the generator's device and copied in (a model on the CPU takes a CUDA
+    generator's weights), with the JAX package's distributions:
     weights U(+-sqrt(3/fan_in)), biases U(+-1/sqrt(fan_in)), GroupNorm ones
     and zeros, and the ADM zero modules (each ResBlock's last conv, each
     attention projection, the output conv) zeroed."""
 
     def uniform_(t, bound):
-        t.copy_((torch.rand(t.shape, generator=generator, device=t.device) * 2 - 1) * bound)
+        t.copy_((torch.rand(t.shape, generator=generator, device=generator.device) * 2 - 1) * bound)
 
     for name, mod in model.named_modules():
         if isinstance(mod, GroupNorm32):
@@ -475,7 +499,7 @@ def init_unet_(model: UNetModel, generator: torch.Generator) -> UNetModel:
             uniform_(mod.weight, math.sqrt(3.0 / fan_in))
             uniform_(mod.bias, 1.0 / math.sqrt(fan_in))
         elif isinstance(mod, nn.Embedding):
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator, device=mod.weight.device))
+            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator, device=generator.device))
     return model
 
 

@@ -1,5 +1,7 @@
-"""Native C++ host geometry (marching tetrahedra, smoothing, OBJ writer and
-reader, point-in-mesh occupancy).
+"""Native C++ host geometry (marching tetrahedra, smoothing, triangle
+areas, OBJ writer and reader, point-in-mesh occupancy). Smoothing, areas
+and occupancy split their loops over the host's cores (``std::thread``,
+joined before each call returns); their results do not depend on it.
 
 The library builds with g++ at first use into ``build/native/`` at the root
 of the checkout (a directory ``.gitignore`` lists), never into the package.
@@ -41,7 +43,7 @@ def build_native() -> str:
         if not up_to_date():
             tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-o", tmp, _SRC],
+                ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-pthread", "-o", tmp, _SRC],
                 check=True, capture_output=True,
             )
             os.replace(tmp, _LIB_PATH)  # atomic: a reader never sees half a file
@@ -75,6 +77,8 @@ def get_lib() -> ctypes.CDLL:
         ]
         lib.points_occupancy.restype = None
         lib.points_occupancy.argtypes = [dp, ll, lp, ll, dp, ll, dp]
+        lib.triangle_areas.restype = None
+        lib.triangle_areas.argtypes = [dp, lp, ll, dp]
         _lib = lib
         return lib
 
@@ -117,6 +121,21 @@ def native_smooth_simple(vertices: np.ndarray, triangles: np.ndarray, iterations
         v.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), len(v),
         t.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(t),
         int(iterations), out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+    )
+    return out
+
+
+def native_triangle_areas(vertices: np.ndarray, triangles: np.ndarray) -> np.ndarray:
+    """C++ per-triangle areas, bit-equal to ``0.5 * np.linalg.norm(np.cross(
+    v1 - v0, v2 - v0), axis=1)``; [F] f64."""
+    lib = get_lib()
+    v = np.ascontiguousarray(vertices, dtype=np.float64)
+    t = np.ascontiguousarray(triangles, dtype=np.int64)
+    out = np.empty(len(t), np.float64)
+    lib.triangle_areas(
+        v.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        t.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)), len(t),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
     )
     return out
 

@@ -12,10 +12,15 @@
 //    filter_smooth_simple semantics, the reference's 10-iteration post-
 //    marching smooth, drag_utils.py:300).
 // 4. write_obj: buffered ascii OBJ writer ("%.8g" vertex format, matching
-//    the Python writer byte-for-byte).
+//    the Python writer byte-for-byte; std::to_chars does the formatting).
 // 5. read_obj: ascii OBJ reader: "v" and "f" lines only, a face token read
 //    by its first index ("a/b/c" -> a), polygons fan-triangulated (the JAX
 //    package's Python reader, geometry/mesh.py::_read_obj, line for line).
+// 6. triangle_areas: per-triangle areas, bit-equal to the NumPy formula in
+//    geometry/mesh.py (the area-weighted point sampling's weights).
+//
+// smooth_simple, points_occupancy and triangle_areas split their loops
+// over threads (parallel_for); their results do not depend on the split.
 //
 // Exposed via a plain C ABI for ctypes.
 
@@ -27,6 +32,28 @@
 #include <unordered_map>
 #include <vector>
 #include <algorithm>
+#include <charconv>
+#include <system_error>
+#include <thread>
+#include <type_traits>
+
+// f(begin, end) over [0, n) split into contiguous ranges, one std::thread
+// each (at most 16, none below `grain` items per range); the threads are
+// joined before it returns, so a later fork sees none of them.
+template <class F>
+static void parallel_for(long long n, long long grain, F&& f) {
+  const unsigned hw = std::thread::hardware_concurrency();
+  long long k = std::min<long long>(hw ? hw : 1, 16);
+  k = std::min<long long>(k, std::max<long long>(1, n / std::max<long long>(grain, 1)));
+  if (k <= 1) {
+    f(0LL, n);
+    return;
+  }
+  std::vector<std::thread> pool;
+  pool.reserve((size_t)k);
+  for (long long i = 0; i < k; ++i) pool.emplace_back([&f, n, k, i] { f(n * i / k, n * (i + 1) / k); });
+  for (auto& t : pool) t.join();
+}
 
 extern "C" {
 
@@ -206,45 +233,73 @@ void points_occupancy(const double* verts, long long nv, const long long* tris,
     return std::min(ncell - 1, std::max(0, (int)((y - miny) / ch)));
   };
 
-  std::vector<std::vector<int>> cells((size_t)ncell * ncell);
-  for (long long f = 0; f < nf; ++f) {
+  // the triangles over each cell's xy box as a CSR (a count pass, then a
+  // fill pass); the order within a cell does not matter, as a point's
+  // hits are only counted
+  const long long grain = 1 << 14;
+  auto box = [&](long long f, int* x0, int* x1, int* y0, int* y1) {
     const double* A = verts + 3 * tris[3 * f];
     const double* B = verts + 3 * tris[3 * f + 1];
     const double* C = verts + 3 * tris[3 * f + 2];
-    int x0 = cellx(std::min({A[0], B[0], C[0]}));
-    int x1 = cellx(std::max({A[0], B[0], C[0]}));
-    int y0 = celly(std::min({A[1], B[1], C[1]}));
-    int y1 = celly(std::max({A[1], B[1], C[1]}));
-    for (int x = x0; x <= x1; ++x)
-      for (int y = y0; y <= y1; ++y)
-        cells[(size_t)x * ncell + y].push_back((int)f);
+    *x0 = cellx(std::min({A[0], B[0], C[0]}));
+    *x1 = cellx(std::max({A[0], B[0], C[0]}));
+    *y0 = celly(std::min({A[1], B[1], C[1]}));
+    *y1 = celly(std::max({A[1], B[1], C[1]}));
+  };
+  std::vector<long long> start((size_t)ncell * ncell + 1, 0);
+  long long* const sp = start.data();
+  parallel_for(nf, grain, [&](long long b, long long e) {
+    int x0, x1, y0, y1;
+    for (long long f = b; f < e; ++f) {
+      box(f, &x0, &x1, &y0, &y1);
+      for (int x = x0; x <= x1; ++x)
+        for (int y = y0; y <= y1; ++y) __atomic_fetch_add(&sp[(size_t)x * ncell + y + 1], 1, __ATOMIC_RELAXED);
+    }
+  });
+  for (size_t c = 0; c + 1 < start.size(); ++c) sp[c + 1] += sp[c];
+  std::vector<int> members((size_t)sp[(size_t)ncell * ncell]);
+  {
+    std::vector<long long> fill(start.begin(), start.end() - 1);
+    long long* const fp = fill.data();
+    parallel_for(nf, grain, [&](long long b, long long e) {
+      int x0, x1, y0, y1;
+      for (long long f = b; f < e; ++f) {
+        box(f, &x0, &x1, &y0, &y1);
+        for (int x = x0; x <= x1; ++x)
+          for (int y = y0; y <= y1; ++y)
+            members[(size_t)__atomic_fetch_add(&fp[(size_t)x * ncell + y], 1, __ATOMIC_RELAXED)] = (int)f;
+      }
+    });
   }
 
   const double ex = 1.3e-7, ey = 2.9e-7;  // degeneracy-breaking shift
-  for (long long i = 0; i < np; ++i) {
-    double px = points[3 * i] + ex, py = points[3 * i + 1] + ey,
-           pz = points[3 * i + 2];
-    if (px < minx || px > maxx || py < miny || py > maxy) {
-      out[i] = 0.0;
-      continue;
+  parallel_for(np, 1 << 10, [&](long long b, long long e) {
+    for (long long i = b; i < e; ++i) {
+      double px = points[3 * i] + ex, py = points[3 * i + 1] + ey,
+             pz = points[3 * i + 2];
+      if (px < minx || px > maxx || py < miny || py > maxy) {
+        out[i] = 0.0;
+        continue;
+      }
+      const size_t cell = (size_t)cellx(px) * ncell + celly(py);
+      int hits = 0;
+      for (long long m = sp[cell]; m < sp[cell + 1]; ++m) {
+        const int f = members[(size_t)m];
+        const double* A = verts + 3 * tris[3 * f];
+        const double* B = verts + 3 * tris[3 * f + 1];
+        const double* C = verts + 3 * tris[3 * f + 2];
+        double d = (B[1] - C[1]) * (A[0] - C[0]) + (C[0] - B[0]) * (A[1] - C[1]);
+        if (std::fabs(d) < 1e-30) continue;
+        double w0 = ((B[1] - C[1]) * (px - C[0]) + (C[0] - B[0]) * (py - C[1])) / d;
+        double w1 = ((C[1] - A[1]) * (px - C[0]) + (A[0] - C[0]) * (py - C[1])) / d;
+        double w2 = 1.0 - w0 - w1;
+        if (w0 < 0 || w1 < 0 || w2 < 0) continue;
+        double z = w0 * A[2] + w1 * B[2] + w2 * C[2];
+        if (z > pz) ++hits;
+      }
+      out[i] = (hits & 1) ? 1.0 : 0.0;
     }
-    const auto& cand = cells[(size_t)cellx(px) * ncell + celly(py)];
-    int hits = 0;
-    for (int f : cand) {
-      const double* A = verts + 3 * tris[3 * f];
-      const double* B = verts + 3 * tris[3 * f + 1];
-      const double* C = verts + 3 * tris[3 * f + 2];
-      double d = (B[1] - C[1]) * (A[0] - C[0]) + (C[0] - B[0]) * (A[1] - C[1]);
-      if (std::fabs(d) < 1e-30) continue;
-      double w0 = ((B[1] - C[1]) * (px - C[0]) + (C[0] - B[0]) * (py - C[1])) / d;
-      double w1 = ((C[1] - A[1]) * (px - C[0]) + (A[0] - C[0]) * (py - C[1])) / d;
-      double w2 = 1.0 - w0 - w1;
-      if (w0 < 0 || w1 < 0 || w2 < 0) continue;
-      double z = w0 * A[2] + w1 * B[2] + w2 * C[2];
-      if (z > pz) ++hits;
-    }
-    out[i] = (hits & 1) ? 1.0 : 0.0;
-  }
+  });
 }
 
 // v' = (v + sum(unique neighbors)) / (1 + deg), `iters` times.
@@ -252,82 +307,137 @@ void points_occupancy(const double* verts, long long nv, const long long* tris,
 void smooth_simple(const double* verts, long long nv, const long long* tris,
                    long long nt, long long iters, double* out) {
   if (nv == 0) return;
-  // directed edges (both directions) as packed keys; sort+unique dedups
-  // shared edges, exactly like the scipy-CSR fallback's duplicate-sum reset
-  std::vector<unsigned long long> keys;
-  keys.reserve((size_t)(6 * nt));
-  const unsigned long long n = (unsigned long long)nv;
-  for (long long i = 0; i < nt; ++i) {
-    unsigned long long a = (unsigned long long)tris[3 * i];
-    unsigned long long b = (unsigned long long)tris[3 * i + 1];
-    unsigned long long c = (unsigned long long)tris[3 * i + 2];
-    keys.push_back(a * n + b);
-    keys.push_back(b * n + c);
-    keys.push_back(c * n + a);
-    keys.push_back(b * n + a);
-    keys.push_back(c * n + b);
-    keys.push_back(a * n + c);
-  }
-  std::sort(keys.begin(), keys.end());
-  keys.erase(std::unique(keys.begin(), keys.end()), keys.end());
-  // CSR over the deduped directed edges
+  // CSR of the directed edges (both directions of every triangle edge),
+  // bucketed by source vertex (a counting sort), then each row sorted and
+  // deduped: the unique neighbors in ascending order, as a global
+  // sort+unique of (row, col) keys gives them (the scipy-CSR fallback's
+  // duplicate-sum reset), in O(E) plus one small sort per vertex. The
+  // order in which threads fill a row does not matter: the row is sorted.
+  const long long grain = 1 << 16;
   std::vector<long long> indptr((size_t)nv + 1, 0);
-  std::vector<long long> indices(keys.size());
-  for (size_t e = 0; e < keys.size(); ++e) {
-    long long r = (long long)(keys[e] / n);
-    indices[e] = (long long)(keys[e] % n);
-    indptr[(size_t)r + 1]++;
+  long long* const ip = indptr.data();
+  parallel_for(3 * nt, grain, [&](long long b, long long e) {
+    for (long long i = b; i < e; ++i) __atomic_fetch_add(&ip[tris[i] + 1], 2, __ATOMIC_RELAXED);
+  });
+  for (long long i = 0; i < nv; ++i) ip[i + 1] += ip[i];
+  std::vector<long long> indices((size_t)ip[nv]);
+  long long* const ix = indices.data();
+  {
+    std::vector<long long> fill(indptr.begin(), indptr.end() - 1);
+    long long* const fp = fill.data();
+    auto put = [&](long long r, long long a, long long b) {
+      const long long at = __atomic_fetch_add(&fp[r], 2, __ATOMIC_RELAXED);
+      ix[at] = a;
+      ix[at + 1] = b;
+    };
+    parallel_for(nt, grain, [&](long long b, long long e) {
+      for (long long i = b; i < e; ++i) {
+        const long long x = tris[3 * i], y = tris[3 * i + 1], z = tris[3 * i + 2];
+        put(x, y, z);
+        put(y, z, x);
+        put(z, x, y);
+      }
+    });
   }
-  for (long long i = 0; i < nv; ++i) indptr[(size_t)i + 1] += indptr[(size_t)i];
+  std::vector<long long> unique((size_t)nv);
+  parallel_for(nv, grain, [&](long long b, long long e) {
+    for (long long i = b; i < e; ++i) {
+      long long* const row = ix + ip[i];
+      const long long len = ip[i + 1] - ip[i];
+      std::sort(row, row + len);
+      unique[(size_t)i] = std::unique(row, row + len) - row;
+    }
+  });
+  long long w = 0;
+  for (long long i = 0; i < nv; ++i) {
+    const long long from = ip[i], n = unique[(size_t)i];
+    ip[i] = w;
+    if (from != w) std::memmove(ix + w, ix + from, (size_t)n * sizeof(long long));
+    w += n;
+  }
+  ip[nv] = w;
   std::vector<double> cur(verts, verts + 3 * nv), nxt((size_t)3 * nv);
   for (long long it = 0; it < iters; ++it) {
-    for (long long i = 0; i < nv; ++i) {
-      double sx = cur[3 * i], sy = cur[3 * i + 1], sz = cur[3 * i + 2];
-      const long long e0 = indptr[(size_t)i], e1 = indptr[(size_t)i + 1];
-      for (long long e = e0; e < e1; ++e) {
-        const long long j = indices[(size_t)e];
-        sx += cur[3 * j];
-        sy += cur[3 * j + 1];
-        sz += cur[3 * j + 2];
+    const double* const c = cur.data();
+    double* const x = nxt.data();
+    parallel_for(nv, grain, [&](long long b, long long e) {
+      for (long long i = b; i < e; ++i) {
+        double sx = c[3 * i], sy = c[3 * i + 1], sz = c[3 * i + 2];
+        const long long e0 = ip[i], e1 = ip[i + 1];
+        for (long long k = e0; k < e1; ++k) {
+          const long long j = ix[k];
+          sx += c[3 * j];
+          sy += c[3 * j + 1];
+          sz += c[3 * j + 2];
+        }
+        const double inv = 1.0 / (1.0 + (double)(e1 - e0));
+        x[3 * i] = sx * inv;
+        x[3 * i + 1] = sy * inv;
+        x[3 * i + 2] = sz * inv;
       }
-      const double inv = 1.0 / (1.0 + (double)(e1 - e0));
-      nxt[3 * i] = sx * inv;
-      nxt[3 * i + 1] = sy * inv;
-      nxt[3 * i + 2] = sz * inv;
-    }
+    });
     cur.swap(nxt);
   }
   std::memcpy(out, cur.data(), (size_t)3 * nv * sizeof(double));
+}
+
+// 0.5 * |(v1 - v0) x (v2 - v0)| per triangle, with NumPy's operations in
+// NumPy's order (np.cross: a1*b2 - a2*b1, ...; np.linalg.norm over three:
+// (x0^2 + x1^2) + x2^2) and no fused multiply-add, so the areas equal
+// geometry/mesh.py's NumPy spec bit for bit.
+__attribute__((optimize("fp-contract=off")))
+static void triangle_areas_range(const double* verts, const long long* tris, long long b, long long e,
+                                 double* out) {
+  for (long long i = b; i < e; ++i) {
+    const double* A = verts + 3 * tris[3 * i];
+    const double* B = verts + 3 * tris[3 * i + 1];
+    const double* C = verts + 3 * tris[3 * i + 2];
+    const double a0 = B[0] - A[0], a1 = B[1] - A[1], a2 = B[2] - A[2];
+    const double b0 = C[0] - A[0], b1 = C[1] - A[1], b2 = C[2] - A[2];
+    const double c0 = a1 * b2 - a2 * b1, c1 = a2 * b0 - a0 * b2, c2 = a0 * b1 - a1 * b0;
+    out[i] = 0.5 * std::sqrt((c0 * c0 + c1 * c1) + c2 * c2);
+  }
+}
+
+void triangle_areas(const double* verts, const long long* tris, long long nt, double* out) {
+  parallel_for(nt, 1 << 16, [&](long long b, long long e) { triangle_areas_range(verts, tris, b, e, out); });
 }
 
 long long write_obj(const char* path, const double* verts, long long nv,
                     const long long* tris, long long nt) {
   FILE* f = std::fopen(path, "w");
   if (!f) return 1;
-  std::vector<char> buf;
-  buf.reserve(1 << 22);
-  char line[128];
+  // std::to_chars with (general, 8) prints exactly what printf's "%.8g"
+  // prints, several times faster; each line is under 128 bytes
+  const size_t cap = 1 << 22;
+  std::vector<char> buf(cap + 128);
+  char* const b = buf.data();
+  char* const last = b + buf.size();
+  size_t len = 0;
   bool ok = true;
   auto flush = [&]() {
     // a short fwrite (e.g. ENOSPC) must fail the call, or the Python
     // fallback writer never runs and a truncated OBJ reads as success
-    if (ok && !buf.empty() &&
-        std::fwrite(buf.data(), 1, buf.size(), f) != buf.size())
-      ok = false;
-    buf.clear();
+    if (ok && len && std::fwrite(b, 1, len, f) != len) ok = false;
+    len = 0;
   };
   for (long long i = 0; i < nv; ++i) {
-    int n = std::snprintf(line, sizeof(line), "v %.8g %.8g %.8g\n",
-                          verts[3 * i], verts[3 * i + 1], verts[3 * i + 2]);
-    buf.insert(buf.end(), line, line + n);
-    if (buf.size() > (1 << 22) - 256) flush();
+    b[len++] = 'v';
+    for (int k = 0; k < 3; ++k) {
+      b[len++] = ' ';
+      len = std::to_chars(b + len, last, verts[3 * i + k], std::chars_format::general, 8).ptr - b;
+    }
+    b[len++] = '\n';
+    if (len > cap) flush();
   }
   for (long long i = 0; i < nt; ++i) {
-    int n = std::snprintf(line, sizeof(line), "f %lld %lld %lld\n",
-                          tris[3 * i] + 1, tris[3 * i + 1] + 1,
-                          tris[3 * i + 2] + 1);
-    buf.insert(buf.end(), line, line + n);
-    if (buf.size() > (1 << 22) - 256) flush();
+    b[len++] = 'f';
+    for (int k = 0; k < 3; ++k) {
+      b[len++] = ' ';
+      len = std::to_chars(b + len, last, tris[3 * i + k] + 1).ptr - b;
+    }
+    b[len++] = '\n';
+    if (len > cap) flush();
   }
   flush();
   if (std::ferror(f)) ok = false;
@@ -335,8 +445,6 @@ long long write_obj(const char* path, const double* verts, long long nv,
   return (ok && rc == 0) ? 0 : 2;
 }
 
-// Returns 0, or 1 when the file cannot be read, 3 when a "v" line holds
-// fewer than three numbers or an "f" token is not an integer.
 long long read_obj(const char* path, double** out_verts, long long** out_tris,
                    long long* out_nv, long long* out_nt) {
   FILE* f = std::fopen(path, "rb");
@@ -344,12 +452,33 @@ long long read_obj(const char* path, double** out_verts, long long** out_tris,
   std::vector<char> text;
   char chunk[1 << 16];
   size_t got;
+  if (std::fseek(f, 0, SEEK_END) == 0) {
+    const long size = std::ftell(f);
+    if (size > 0) text.reserve((size_t)size + 1);
+    std::rewind(f);
+  }
   while ((got = std::fread(chunk, 1, sizeof(chunk), f)) > 0)
     text.insert(text.end(), chunk, chunk + got);
   const bool bad = std::ferror(f);
   std::fclose(f);
   if (bad) return 1;
   text.push_back('\0');  // strtod/strtoll stop before the end
+  // std::from_chars parses a plain number as strtod/strtoll do (both round
+  // correctly); where it refuses or stops inside a token ("+1", "0x1p3",
+  // out of range), the C parser reads the token as before
+  auto number = [](const char* q, const char* eol, auto& x, char** stop) {
+    using T = std::remove_reference_t<decltype(x)>;
+    if (*q != '+') {
+      const std::from_chars_result r = std::from_chars(q, eol, x);
+      if (r.ec == std::errc() && (r.ptr == eol || *r.ptr == ' ' || *r.ptr == '\t' || *r.ptr == '\r' ||
+                                  *r.ptr == '\v' || *r.ptr == '\f' || (!std::is_floating_point_v<T> && *r.ptr == '/'))) {
+        *stop = const_cast<char*>(r.ptr);
+        return;
+      }
+    }
+    if constexpr (std::is_floating_point_v<T>) x = std::strtod(q, stop);
+    else x = std::strtoll(q, stop, 10);
+  };
   std::vector<double> verts;
   std::vector<long long> tris, idx;
   const char* p = text.data();
@@ -364,7 +493,8 @@ long long read_obj(const char* path, double** out_verts, long long** out_tris,
         for (int k = 0; k < 3; ++k) {
           while (q < eol && blank(*q)) ++q;
           char* stop;
-          const double x = std::strtod(q, &stop);
+          double x;
+          number(q, eol, x, &stop);
           if (stop == q || stop > eol) return 3;
           verts.push_back(x);
           q = stop;
@@ -375,7 +505,8 @@ long long read_obj(const char* path, double** out_verts, long long** out_tris,
           while (q < eol && blank(*q)) ++q;
           if (q >= eol) break;
           char* stop;
-          const long long i = std::strtoll(q, &stop, 10);
+          long long i;
+          number(q, eol, i, &stop);
           if (stop == q) return 3;
           idx.push_back(i - 1);
           q = stop;

@@ -1,15 +1,20 @@
-"""Ranks on a data axis: the counterpart of the JAX package's device mesh
-(``ishapediting_tpu/parallel/mesh.py``).
+"""Ranks on a (data, model) mesh: the counterpart of the JAX package's
+device mesh (``ishapediting_tpu/parallel/mesh.py``).
 
 The reference's only parallelism is data-parallel sampling with one process
 per GPU over ``torch.distributed`` (dist_util.py:21-85,
 image_sample.py:104-132). The JAX package drives every device from one
 process through a ``Mesh``; the port follows the reference: one process per
 rank, launched with ``torchrun`` (``python -m torch.distributed.run``), and a
-``DataMesh`` that names this rank's place on the ``data`` axis. Independent
-trajectories are this workload's scaling axis, so every rank holds the whole
-model (``replicate``) and its own rows of a batch (``shard_batch``);
-``gather`` concatenates the rows again, the fetch of a ``P("data")`` array.
+``DataMesh`` that names this rank's place on the mesh. The ranks are laid
+out row-major over ``data`` x ``model``, as the JAX package reshapes its
+devices: rank r sits at data index r // model and model index r % model.
+Independent trajectories are this workload's scaling axis: each data index
+holds its own rows of a batch (``shard_batch``) and ``gather`` concatenates
+them again, the fetch of a ``P("data")`` array, which the ``model`` axis
+replicates. The ``model`` axis cuts the UNet's widest layers
+(``parallel/tensor.py::shard_params_tp``); with ``model_parallel=1`` every
+rank holds the whole model (``replicate``).
 
 The collectives are only ``all_reduce``, ``broadcast`` and ``all_gather``
 in its list form: the ones gloo implements for CUDA tensors, so ranks that
@@ -18,9 +23,6 @@ The backend is explicit: ``nccl`` for ranks on CUDA devices, ``gloo`` on the
 CPU, as the reference's ``setup_dist`` chooses; ranks sharing a card pass
 ``gloo``. Without a launcher environment nothing here starts a process group:
 ``make_mesh()`` is one rank and every helper is the identity.
-
-Tensor parallelism (the JAX package's ``model`` axis, ``shard_params_tp``)
-is not ported: the 421M model fits one H100.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import dataclasses
 import datetime
 import logging
 import os
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -46,27 +48,61 @@ log = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """``rank``: this process's rank; ``size``: the ranks on the ``data``
-    axis, 0 .. size-1 (ranks past it sit idle); ``device``: this rank's
-    device; ``group``: the process group over the axis (None for one rank)."""
+    """This rank's place on a ``data`` x ``model`` mesh of ranks 0 ..
+    size * model - 1, row-major (ranks past it sit idle). ``rank``: this
+    process's rank; ``size``: the ranks on the ``data`` axis; ``device``:
+    this rank's device; ``group``: the process group over this rank's
+    ``data`` axis (the ranks of its model index; None for one rank);
+    ``model``: the ranks on the ``model`` axis; ``model_group``: over this
+    rank's ``model`` axis (the ranks of its data index); ``mesh_group``:
+    over every rank of the mesh."""
 
     rank: int
     size: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    model: int = 1
+    model_group: Optional[dist.ProcessGroup] = None
+    mesh_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Ranks per axis, as the JAX package's ``mesh.shape``."""
+        return {"data": self.size, "model": self.model}
+
+    @property
+    def n_ranks(self) -> int:
+        return self.size * self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def active(self) -> bool:
-        return self.rank < self.size
+        return self.rank < self.n_ranks
 
-    def rows(self, n: int) -> slice:
-        """This rank's rows of a leading axis of ``n``."""
-        if n % self.size:
-            raise ValueError(f"batch {n} not divisible by the data axis of {self.size} ranks")
+    def _slice(self, n: int, parts: int, index: int, what: str) -> slice:
+        if n % parts:
+            raise ValueError(f"batch {n} not divisible by {what} of {parts} ranks")
         if not self.active:
             raise ValueError(f"rank {self.rank} is not on the data axis of {self.size} ranks")
-        per = n // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        per = n // parts
+        return slice(index * per, (index + 1) * per)
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a leading axis of ``n`` split over the data
+        axis (the ranks of one data index share them)."""
+        return self._slice(n, self.size, self.data_index, "the data axis")
+
+    def mesh_rows(self, n: int) -> slice:
+        """This rank's rows of ``n`` split over every rank of the mesh in
+        row-major order (the JAX package's ``P(("data", "model"))``)."""
+        return self._slice(n, self.n_ranks, self.rank, "the mesh")
 
 
 def world() -> Tuple[int, int]:
@@ -104,6 +140,7 @@ def initialize_distributed(backend: Optional[str] = None, *, device=None, **kwar
         backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
     kwargs.setdefault("timeout", DEFAULT_TIMEOUT)
     dist.init_process_group(backend, **kwargs)
+    _GROUPS["timeout"] = kwargs["timeout"]
     return True
 
 
@@ -116,27 +153,56 @@ def rank_device(device=None) -> torch.device:
     return dev
 
 
+# The groups ``make_mesh`` made in this process group world, by their ranks:
+# ``dist.new_group`` is collective, so a long-lived process (a server that
+# plans a mesh per request) makes each group once and reuses it.
+_GROUPS: Dict = {}
+
+
+def _group(ranks: Sequence[int]) -> Optional[dist.ProcessGroup]:
+    """The process group over ``ranks``: None for one rank, the world's for
+    all of them, else one made by ``dist.new_group`` the first time. Every
+    rank of the world calls it for the same ranks in the same order."""
+    ranks = tuple(ranks)
+    if len(ranks) == 1:
+        return None
+    world_group = dist.group.WORLD
+    if len(ranks) == dist.get_world_size():
+        return world_group
+    if _GROUPS.get("world") is not world_group:  # a new process group world
+        timeout = _GROUPS.get("timeout", DEFAULT_TIMEOUT)
+        _GROUPS.clear()
+        _GROUPS.update(world=world_group, timeout=timeout)
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks), timeout=_GROUPS["timeout"])
+    return _GROUPS[ranks]
+
+
 def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1, *,
               device: Union[str, torch.device, None] = None) -> DataMesh:
-    """The ``data`` axis over ranks 0 .. ``n_devices``-1 (default: every
-    rank). Every rank of the world must call it, in the same order: a
-    smaller axis creates its process group collectively."""
-    if model_parallel != 1:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel}: tensor parallelism (the JAX package's model axis, "
-            "shard_params_tp) is not ported yet; the port has the data axis only"
-        )
+    """A ``data`` x ``model`` mesh of ranks 0 .. ``n_devices``-1 (default:
+    every rank), ``model_parallel`` ranks on the model axis, laid out
+    row-major. Every rank of the world must call it, in the same order: it
+    makes the process group of every row and every column, collectively
+    (once per process; later meshes over the same ranks reuse them)."""
     n_world, rank = world()
-    size = n_world if n_devices is None else int(n_devices)
-    if not 1 <= size <= n_world:
-        raise ValueError(f"a data axis of {size} ranks in a world of {n_world}")
-    group = None
-    if size > 1:
-        group = dist.group.WORLD if size == n_world else dist.new_group(list(range(size)))
+    n = n_world if n_devices is None else int(n_devices)
+    m = int(model_parallel)
+    if not 1 <= n <= n_world:
+        raise ValueError(f"a mesh of {n} ranks in a world of {n_world}")
+    if m < 1 or n % m:
+        raise ValueError(f"{n} devices not divisible by model_parallel={m}")
+    d = n // m
+    columns = [_group(range(j, n, m)) for j in range(m)]  # the data axis of each model index
+    rows = [_group(range(i * m, (i + 1) * m)) for i in range(d)]  # the model axis of each data index
+    whole = _group(range(n))
     dev = rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    return DataMesh(rank=rank, size=size, device=dev, group=group)
+    if rank >= n:
+        return DataMesh(rank=rank, size=d, device=dev, model=m)
+    return DataMesh(rank=rank, size=d, device=dev, group=columns[rank % m], model=m,
+                    model_group=rows[rank // m], mesh_group=whole)
 
 
 def shard_batch(x, mesh: DataMesh):
@@ -144,17 +210,27 @@ def shard_batch(x, mesh: DataMesh):
     return x[mesh.rows(x.shape[0])]
 
 
-def gather(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """Every rank's rows of ``x`` concatenated in rank order, on every rank
-    of the axis (each rank gives the same shape)."""
-    if mesh.size == 1:
+def _all_gather(x: torch.Tensor, parts: int, group, mesh: DataMesh) -> torch.Tensor:
+    if parts == 1:
         return x
     if not mesh.active:
-        raise ValueError(f"rank {mesh.rank} is not on the data axis of {mesh.size} ranks")
+        raise ValueError(f"rank {mesh.rank} is not on the mesh of {mesh.n_ranks} ranks")
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x, group=mesh.group)
-    return torch.cat(parts)
+    out = [torch.empty_like(x) for _ in range(parts)]
+    dist.all_gather(out, x, group=group)
+    return torch.cat(out)
+
+
+def gather(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Every data index's rows of ``x`` concatenated in order, on every rank
+    of the mesh (each rank gives the same shape)."""
+    return _all_gather(x, mesh.size, mesh.group, mesh)
+
+
+def gather_mesh(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Every rank's rows of ``x`` concatenated in row-major rank order (the
+    fetch of a ``P(("data", "model"))`` array), on every rank of the mesh."""
+    return _all_gather(x, mesh.n_ranks, mesh.mesh_group, mesh)
 
 
 def _through_flat(tensors, collective) -> None:
@@ -186,11 +262,11 @@ def all_reduce_flat(tensors, mesh: DataMesh) -> None:
 
 
 def replicate(module: nn.Module, mesh: DataMesh) -> nn.Module:
-    """Every rank of the axis takes rank 0's parameters and buffers (the
+    """Every rank of the mesh takes rank 0's parameters and buffers (the
     reference's ``sync_params``, dist_util.py:79-85; the JAX package's
     replicated ``device_put``). Returns ``module``, changed in place."""
-    if mesh.size > 1 and mesh.active:
-        broadcast_flat([t.data for t in [*module.parameters(), *module.buffers()]], group=mesh.group)
+    if mesh.n_ranks > 1 and mesh.active:
+        broadcast_flat([t.data for t in [*module.parameters(), *module.buffers()]], group=mesh.mesh_group)
     return module
 
 

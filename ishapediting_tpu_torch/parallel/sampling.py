@@ -121,10 +121,10 @@ def batch_plan(num_samples: int, batch_size: int, usable: int, data_size: int) -
 
 
 def _to_world(x: Optional[torch.Tensor], shape, mesh: DataMesh) -> torch.Tensor:
-    """Rank 0's ``x`` on every rank of the world, where the axis that made it
-    does not span the world (its other ranks pass None)."""
+    """Rank 0's ``x`` on every rank of the world, where the mesh that made
+    it does not span the world (its other ranks pass None)."""
     n_world, _ = world()
-    if n_world == mesh.size:
+    if n_world == mesh.n_ranks:
         return x
     if x is None:
         x = torch.empty(shape, device=mesh.device)
@@ -155,14 +155,16 @@ def sample_batches(
     (the JAX package's ``sample_batches`` raises TypeError there). Every
     rank of the world calls it and gets the normalized latents
     [num_samples, H, W, C] as a NumPy array. ``on_batch(batch_idx, done)``
-    fires after each batch."""
+    fires after each batch. On a mesh with a model axis every rank of a
+    data index samples the same rows, and a batch off the data axis runs
+    on the ranks of data index 0."""
     if sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r} ({'|'.join(SAMPLERS)})")
     if mesh is None:
         mesh, usable = plan_data_mesh(batch_size, device=device)
     elif usable is None:
         usable = mesh.size
-    single = make_mesh(1, device=mesh.device)
+    single = make_mesh(mesh.model, model_parallel=mesh.model, device=mesh.device)
     samples, done = [], 0
     for batch_idx, (n, on_axis) in enumerate(batch_plan(num_samples, batch_size, usable, mesh.size)):
         m = mesh if on_axis else single

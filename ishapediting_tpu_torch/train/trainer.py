@@ -21,7 +21,9 @@ draws ``t``, the noise and the masks for all of it and keeps its rows; one
 ``all_reduce`` of a flat buffer sums the gradients and the loss terms, so
 the metrics are the global batch's, the non-finite check skips the step on
 every rank at once, and the parameters and the EMA stay bit-equal on every
-rank.
+rank. A model cut over a model axis (``parallel/tensor.py``) is refused:
+the train step under tensor parallelism is not ported, and a checkpoint
+would hold each rank's slices.
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ from ishapediting_tpu_torch.core.losses import training_losses, update_ema
 from ishapediting_tpu_torch.core.schedule import Schedule
 from ishapediting_tpu_torch.models.unet import draw_dropout_masks
 from ishapediting_tpu_torch.parallel.mesh import DataMesh, all_reduce_flat
+from ishapediting_tpu_torch.parallel.tensor import is_cut
+
+MODEL_AXIS_REFUSED = (
+    "the train step under the model axis is not ported (a checkpoint would save each rank's "
+    "slices): train on a data axis of uncut models (make_mesh(model_parallel=1))"
+)
 
 
 @dataclasses.dataclass
@@ -99,6 +107,8 @@ def make_optimizer(params: Iterable[torch.Tensor], lr: float = 1e-4, weight_deca
 
 
 def init_train_state(model: nn.Module, optimizer: torch.optim.Optimizer) -> TrainState:
+    if is_cut(model):
+        raise NotImplementedError(MODEL_AXIS_REFUSED)
     model.requires_grad_(True)
     ema = {k: p.detach().clone() for k, p in model.named_parameters()}
     return TrainState(step=0, model=model, ema_params=ema, optimizer=optimizer)
@@ -120,6 +130,8 @@ def make_train_step(
     clipping. With a ``mesh`` of several ranks, ``batch`` and the injected
     draws are the global batch's (the same on every rank), and the model
     starts from ``replicate``d parameters."""
+    if mesh is not None and mesh.model > 1:
+        raise NotImplementedError(MODEL_AXIS_REFUSED)
     sharded = mesh is not None and mesh.size > 1
 
     def train_step(state: TrainState, batch, generator: Optional[torch.Generator] = None, *,

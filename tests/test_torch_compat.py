@@ -76,6 +76,27 @@ def test_trimesh_methods_match_jax(name):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
 
 
+def test_native_geometry_split_over_threads_matches_jax(tmp_path):
+    """On a mesh large enough that the native loops split over threads
+    (about 170k triangles): areas, area-weighted samples, smoothing,
+    occupancy and the OBJ bytes equal the JAX package's exactly."""
+    from ishapediting_tpu_torch.geometry.occupancy import points_occupancy
+
+    m = sphere(180, 0.8)
+    v = m.vertices + 0.002 * np.random.default_rng(0).standard_normal(m.vertices.shape)
+    mesh, jm = TriMesh(v, m.triangles), jmesh.TriMesh(v.copy(), m.triangles.copy())
+    assert len(mesh.triangles) > 2 * (1 << 16)
+    np.testing.assert_array_equal(mesh.triangle_areas(), jm.triangle_areas())
+    np.testing.assert_array_equal(mesh.sample_points_uniformly(20_000, seed=3),
+                                  jm.sample_points_uniformly(20_000, seed=3))
+    np.testing.assert_array_equal(mesh.filter_smooth_simple(3).vertices, jm.filter_smooth_simple(3).vertices)
+    pts = np.random.default_rng(1).uniform(-1, 1, (20_000, 3))
+    np.testing.assert_array_equal(points_occupancy(mesh, pts), jocc.points_occupancy(jm, pts))
+    mesh.write(str(tmp_path / "m.obj"))
+    jm.write(str(tmp_path / "j.obj"))
+    assert open(tmp_path / "m.obj", "rb").read() == open(tmp_path / "j.obj", "rb").read()
+
+
 @pytest.mark.parametrize("ext", [".obj", ".off", ".ply", ".stl"])
 def test_write_read_round_trip_matches_jax(tmp_path, ext):
     """The port writes; both packages read the same file back to the same

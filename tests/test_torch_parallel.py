@@ -104,16 +104,17 @@ def sphere(r, c=(0.0, 0.0, 0.0), res=24):
 
 
 class Spawn:
-    """``world_size`` ranks running ``tasks`` of ``torch_parallel_workers``;
-    ``results(task)`` waits for them and returns each rank's result."""
+    """``world_size`` ranks running ``tasks`` of ``table`` (default
+    ``torch_parallel_workers.TASKS``); ``results(task)`` waits for them and
+    returns each rank's result."""
 
-    def __init__(self, world_size, tasks, inputs_path, out_dir):
+    def __init__(self, world_size, tasks, inputs_path, out_dir, table=None):
         self.world_size, self.out_dir = world_size, str(out_dir)
         os.makedirs(self.out_dir, exist_ok=True)
         ctx = mp.get_context("spawn")
         init = os.path.join(self.out_dir, f"init_{world_size}")
         self.procs = [ctx.Process(target=workers.run_rank,
-                                  args=(r, world_size, init, tasks, str(inputs_path), self.out_dir))
+                                  args=(r, world_size, init, tasks, str(inputs_path), self.out_dir, table))
                       for r in range(world_size)]
         for p in self.procs:
             p.start()
@@ -228,7 +229,7 @@ def test_initialize_distributed_without_environment(caplog, monkeypatch):
 
 
 def test_make_mesh_refuses_model_parallel_and_other_sizes():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="1 devices not divisible by model_parallel=2"):
         pmesh.make_mesh(model_parallel=2, device="cpu")
     with pytest.raises(ValueError, match="world of 1"):
         pmesh.make_mesh(2, device="cpu")

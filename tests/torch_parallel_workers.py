@@ -20,15 +20,16 @@ from ishapediting_tpu_torch.parallel import mesh as pmesh
 TIMEOUT_S = 120  # a rank left waiting in a collective raises after this long
 
 
-def run_rank(rank, world_size, init_file, tasks, inputs_path, out_dir):
-    """Join the group, run each task in order and save its result."""
+def run_rank(rank, world_size, init_file, tasks, inputs_path, out_dir, table=None):
+    """Join the group, run each task of ``table`` (default ``TASKS``) in
+    order and save its result."""
     torch.set_num_threads(2)
     pmesh.initialize_distributed("gloo", device="cpu", init_method=f"file://{init_file}", rank=rank,
                                  world_size=world_size, timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
         inputs = torch.load(inputs_path, weights_only=False)
         for task in tasks:
-            result = TASKS[task](rank, inputs, out_dir)
+            result = (TASKS if table is None else table)[task](rank, inputs, out_dir)
             torch.save(result, os.path.join(out_dir, f"{task}_rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
