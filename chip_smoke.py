@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's generation, editing, serving, training,
-evaluation, data-parallel and tensor-parallel paths once on one NVIDIA card.
+evaluation, data-parallel and tensor-parallel paths, and its reading of the
+JAX package's orbax checkpoints, once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one H100
     python3 chip_smoke.py --phases 2,7   # the build and some phases: no result line
@@ -56,7 +57,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    of the first 256^3 mesh at the published ``FitConfig`` (its loss must
    fall), ``morph`` of two ``sample_latent``s at 3 frames, ``cli.morph``,
    ``cli.batch_edit`` on 2 seeds (batched generation, inversion, replay
-   drag, four 256^3 meshes), ``drag_edit_batched`` on its records without
+   drag over a 5-step edit window, four 256^3 meshes),
+   ``drag_edit_batched`` on its records without
    and with remat, held to two single-shape ``drag_edit`` runs with the same
    noises and to each other, ``fit_real_shapes_batched`` of two 256^3
    meshes, and a ``cli.serve`` session through ``serve_loop`` over a pipe
@@ -103,7 +105,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    (the CUDA generator of seed 0) with signal in the weights the ADM init
    zeroes (with them zero the UNet outputs exactly 0, and any torso or
    weights on any rank would match it): a forward and DDIM-10 at batch 2,
-   and a servable model dir of it. Then two ranks sharing the card
+   a servable model dir of it, and (with phase 10) two train steps. Then two ranks sharing the card
    (``python -m torch.distributed.run --standalone --nproc_per_node 2
    chip_smoke.py --rank-worker <dir>``, gloo: NCCL refuses two ranks on one
    device), each running in-process: (a) ``cli.generate --model_dir``
@@ -137,8 +139,26 @@ Phases, each fatal on failure (exit code 1, no result line):
     0, ``load_model`` of the reference's model dir, ``generate`` of 2
     samples at batch 2 over the ranks (DDIM-10, triplanes held to the
     reference's at 2e-2, meshes at 64^3), ``status``, ``quit``, every
-    response ok; each rank's launches exact and added to the totals;
-11. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+    response ok; (e) the reference's UNet (cut, dropout 0.1) trains two
+    steps at global batch 2 (remat, grad_clip 0.1, below the gradient's
+    norm so the clip runs; draws from CPU generators), held to the
+    reference's two one-rank steps on the same draws (loss, mse, vb and
+    ``grad_norm`` to 1e-3, every parameter's clipped gradient norm to
+    2e-2), with each rank's bytes of parameters, EMA and
+    moments, peak GiB, first and steady s/step and gloo seconds printed;
+    then the fp32 miniature's train step cut against whole (loss,
+    ``grad_norm``, parameters after the step, 1e-4) and a checkpoint saved
+    cut and loaded whole (bit-equal); each rank's launches exact and added
+    to the totals;
+11. the JAX package's orbax checkpoints (``tests/assets/orbax``, written by
+    ``tests/assets/make_orbax_assets.py``; the card's machine has no JAX,
+    orbax or tensorstore): ``DragEngine.from_model_dir`` of the tiny model
+    dir on the card, every leaf of the three trees against
+    ``sha256.json``, DDIM-10 from JAX's x_T through the kernels against
+    JAX's latents (max abs 1e-3), ``cli.decode --model_dir`` on the dir,
+    ``train`` resumed from the JAX ``step_3`` for one step (step 4, finite
+    loss), and the reader's MB/s;
+12. print the ``{"kernels": [...]}`` line, the card's name and power limit,
     and as the last line ``{"ok": true, "device": {...}}``.
 
 Each phase's start is printed as it begins and each phase's wall before
@@ -153,6 +173,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import math
@@ -1059,6 +1080,9 @@ def rel_l2(a, b) -> float:
 HANDLE = (np.array([[0.5, 0.0, 0.0]], np.float32), np.array([[0.6, 0.0, 0.0]], np.float32))  # source, target
 
 
+BATCH_W_TIME = 5  # phase 5's batched edit window: the engine's 20-step chain guides 10 steps; cut for time
+
+
 def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict:
     """The serving surfaces at chairs width: the direct fit, morphing
     (engine and ``cli.morph``), ``cli.batch_edit`` and the batched drag
@@ -1071,7 +1095,7 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
 
     cfg = engine.config
     steps = engine.sched.num_timesteps
-    w_time = cfg.edit.w_time
+    w_time = BATCH_W_TIME
     out = {}
 
     # -- the direct fit (decoder only: no UNet forward, no launch) ----------
@@ -2002,10 +2026,14 @@ def eval_runs(d, pair, edit_log) -> dict:
     return dict(eval_pair_wall_s=wall, **{k: v for k, v in row.items() if not k.startswith("mesh")})
 
 
+SWEEP_BASE_STEPS = 50  # phase 8's chairs sweep: the base chain (dense reference and DDPM), cut for time;
+# at 20 steps the linear schedule, scaled by 1000 / steps, reaches beta 1 (alphas_cumprod 0)
+
+
 def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     """``solver_mesh_sweep`` on the chairs UNet and decoder (base chain cut
-    to 50 for time: the dense DDIM reference, ddpm50, ddim10, dpm10; 120
-    forwards at batch 1, four 256^3 meshes); then ``cli.eval --solver_sweep
+    to ``SWEEP_BASE_STEPS`` for time: the dense DDIM reference, ddpm50,
+    ddim10, dpm10; 120 forwards at batch 1, four 256^3 meshes); then ``cli.eval --solver_sweep
     --random_init --preset tiny`` on the card (fp32: the generic attention
     kernel). Launches exact per run."""
     from ishapediting_tpu_torch.cli.eval import main as eval_main
@@ -2015,10 +2043,10 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     cfg = engine.config
-    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, base_steps=50),
+    cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, base_steps=SWEEP_BASE_STEPS),
                               edit=dataclasses.replace(cfg.edit, shape_resolution=MESH_RES))
     sweep_engine = DragEngine(cfg, unet=engine.unet, decoder=engine.decoder, stats=engine.stats, device=device)
-    say("  solver_mesh_sweep(chairs, base chain 50, budgets (10,), 1 seed, max_attempts 1)")
+    say(f"  solver_mesh_sweep(chairs, base chain {SWEEP_BASE_STEPS}, budgets (10,), 1 seed, max_attempts 1)")
     walls = []
     get_mesh = sweep_engine.get_mesh
 
@@ -2031,10 +2059,10 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     sweep_engine.get_mesh = timed_mesh
     report, wall, _ = counted(hk, counter, per_fwd, totals, "solver sweep (chairs)",
                               lambda: solver_mesh_sweep(sweep_engine, n_seeds=1, budgets=(10,), max_attempts=1),
-                              120)
+                              2 * SWEEP_BASE_STEPS + 20)
     out = {"chairs_sweep_wall_s": wall, "chairs_sweep_mesh_s": walls, "chairs_sweep": report}
     ok = (report["seeds"] == 1 and all(report[k]["empty"] == 0 and np.isfinite(report[k]["cd_mean"])
-                                       for k in ("ddpm50", "ddim10", "dpm10")))
+                                       for k in (f"ddpm{SWEEP_BASE_STEPS}", "ddim10", "dpm10")))
     say(f"  solver sweep (chairs): {json.dumps(report)}; mesh walls {[round(w, 2) for w in walls]} s, "
         f"wall {wall:.1f} s")
     if not ok:
@@ -2613,12 +2641,13 @@ def ranks_phase(totals, card, ref, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 
-TP_LIMIT_S = 450  # a rank of phase 10 still running past this ends itself
+TP_LIMIT_S = 600  # a rank of phase 10 still running past this ends itself
 # (b)'s fp32 miniature: its widths reach the cut policy's 256 output features
 MINI_TP = dict(image_size=16, in_channels=6, model_channels=64, out_channels=12, num_res_blocks=1,
                attention_ds=(2,), channel_mult=(1, 2, 4), num_head_channels=32, dropout=0.0,
                compute_dtype="float32")
 MINI_TP_FEAT = 1  # its feature tap: [N, 8, 8, 256]
+MINI_TP_STEPS = 4  # (b)'s chain: the tiny pipeline at 4 respaced steps, w_time 2
 MINI_HANDLE = (np.array([[0.2, 0.1, 0.0]], np.float32), np.array([[0.4, 0.1, 0.0]], np.float32))
 TP_BYTES_LIMIT = 0.51  # a rank's share of the chairs UNet's parameter bytes at model_parallel=2
 SERVE_FORWARDS = (32, 10)  # cli.serve's UNet forwards on rank 0 (generate 10, sample 20, drag 2) and rank 1
@@ -2638,21 +2667,22 @@ def phase10_inputs() -> dict:
         t=torch.tensor([999, 500]),
         mini_x=torch.randn((2,) + tiny.latent_shape, generator=gen), mini_t=torch.tensor([5, 77]),
         w_out=torch.randn((2, 16, 16, 12), generator=gen), w_feat=torch.randn((2, 8, 8, 256), generator=gen),
-        x_T=torch.randn(shape, generator=gen), gen_noises=[torch.randn(shape, generator=gen) for _ in range(10)],
+        x_T=torch.randn(shape, generator=gen), gen_noises=[torch.randn(shape, generator=gen) for _ in range(MINI_TP_STEPS)],
         drag_noises=[torch.randn(shape, generator=gen) for _ in range(2)])
 
 
-def signal_chairs(gen_device, preset_name="chairs"):
+def signal_chairs(gen_device, preset_name="chairs", dropout=0.0):
     """Phase 4's chairs UNet (``init_unet_`` from the generator of seed 0 on
     ``gen_device``) built on the CPU, with signal in the weights the ADM
     init zeroes (each ResBlock's last conv, each attention projection, the
     output conv): U(+-0.1 sqrt(3 / fan_in)) from a CPU generator. Phase 4's
-    UNet itself computes an output of exactly 0, which any torso would
-    match."""
+    UNetModel itself computes an output of exactly 0, which any torso would
+    match. ``dropout``: the rate of its train forward (no weight changes)."""
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.models.unet import UNetModel, init_unet_
 
-    model = init_unet_(UNetModel(preset(preset_name).unet), torch.Generator(device=gen_device).manual_seed(0))
+    cfg = dataclasses.replace(preset(preset_name).unet, dropout=dropout)
+    model = init_unet_(UNetModel(cfg), torch.Generator(device=gen_device).manual_seed(0))
     gen = torch.Generator().manual_seed(12)
     with torch.no_grad():
         for p in model.parameters():
@@ -2661,10 +2691,64 @@ def signal_chairs(gen_device, preset_name="chairs"):
     return model.eval().requires_grad_(False)
 
 
-def signal_reference(device="cuda") -> dict:
+TRAIN_TP_BATCH = 2  # (e)'s global batch
+TRAIN_TP_DROPOUT = 0.1
+TRAIN_TP_CLIP = 0.1  # below the chairs-width gradient's global norm (0.17), so the clip runs on both sides
+TRAIN_TP_METRIC_TOL = 1e-3  # (e)'s loss terms and global norm, cut against one rank
+TRAIN_TP_NORMS_TOL = 2e-2  # (e)'s per-parameter gradient norms, cut against one rank
+
+
+def train_draws(cfg, step, dev, batch=TRAIN_TP_BATCH):
+    """(e)'s draws of step ``step``, from a CPU generator (the same in every
+    process): a global batch in [-1, 1] with its t, noise and dropout
+    masks, on ``dev``."""
+    from ishapediting_tpu_torch.models.unet import draw_dropout_masks
+
+    gen = torch.Generator().manual_seed(30 + step)
+    s = cfg.image_size
+    x = torch.randn((batch, s, s, cfg.in_channels), generator=gen).clamp(-1, 1)
+    t, noise = torch.randint(0, 1000, (batch,), generator=gen), torch.randn(x.shape, generator=gen)
+    masks = draw_dropout_masks(cfg, batch, gen) if cfg.dropout > 0 else None
+    if masks is not None:
+        masks = [None if m is None else m.to(dev) for m in masks]
+    return x.to(dev), dict(t=t.to(dev), noise=noise.to(dev), dropout_masks=masks)
+
+
+def train_steps(model, cfg, dev, mesh=None, steps=2) -> tuple:
+    """(e): ``steps`` train steps of ``model`` (remat, AdamW at lr 1e-4,
+    grad_clip ``TRAIN_TP_CLIP``, the full 1000-step chain) on ``train_draws``, over
+    ``mesh`` or on one rank: the state, and each step's metrics, wall and
+    clipped gradient norm per parameter (a cut slice's summed over the
+    model axis), the peak GiB and the bytes of parameters, EMA and
+    moments this rank holds."""
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.train.trainer import (grad_square_norms, init_train_state, make_optimizer,
+                                                      make_train_step)
+
+    state = init_train_state(model, make_optimizer(model.parameters(), 1e-4, grad_clip=TRAIN_TP_CLIP))
+    step = make_train_step(cfg, make_schedule(1000, "linear", ""), mesh=mesh)
+    out = dict(metrics=[], step_s=[], norms=[])
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(steps):
+        x, draws = train_draws(cfg, k, dev)
+        sync()
+        t0 = time.perf_counter()
+        out["metrics"].append(step(state, x, **draws))
+        sync()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["norms"].append(grad_square_norms(state).sqrt().cpu())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    moments = [v for st in state.optimizer.state.values() for v in st.values() if torch.is_tensor(v) and v.dim()]
+    out["state_bytes"] = nbytes(*model.parameters(), *state.ema_params.values(), *moments)
+    return state, out
+
+
+def signal_reference(totals, device="cuda", train=True) -> dict:
     """Phases 9 and 10's one-rank reference: ``signal_chairs`` on one rank,
     a forward at batch 2 on phase 10's input and DDIM-10 at batch 2 (seed
-    0, drawn as ``cli.generate`` and ``cli.serve``'s ``generate`` draw it);
+    0, drawn as ``cli.generate`` and ``cli.serve``'s ``generate`` draw it),
+    then, with ``train``, phase 10 (e)'s two train steps at global batch 2
+    (its launches exact, added to ``totals``);
     its UNet and decoder written to ``SIGNAL_DIR`` as a servable model dir
     with identity statistics (a written triplane is its normalized
     latent), which the ranks load."""
@@ -2677,7 +2761,7 @@ def signal_reference(device="cuda") -> dict:
 
     t0 = time.perf_counter()
     chairs = preset("chairs", 10, use_ddim=True)
-    one = DragEngine(chairs, unet=signal_chairs(device), device=device)
+    one = DragEngine(chairs, unet=signal_chairs(device, dropout=TRAIN_TP_DROPOUT), device=device)
     inputs = phase10_inputs()
     with torch.no_grad():
         forward, _ = one.unet(inputs["x"].to(device), inputs["t"].to(device))
@@ -2690,14 +2774,34 @@ def signal_reference(device="cuda") -> dict:
     export_model_dir(SIGNAL_DIR, one.unet.state_dict(), 0, "chairs", decoder_from=dec_pt,
                      channels=chairs.latent_shape[-1], plane_channels=chairs.plane_channels)
     os.remove(dec_pt)
-    out = dict(forward=forward.float().cpu().numpy(), ddim=ddim, wall_s=time.perf_counter() - t0)
+    out = dict(forward=forward.float().cpu().numpy(), ddim=ddim)
+    model = one.unet
     del one, forward
     gc.collect()
     torch.cuda.empty_cache()
     if not (np.isfinite(out["ddim"]).all() and np.abs(out["forward"]).max() > 0):
         fail("the one-rank reference of phases 9 and 10: its forward is zero or its samples not finite")
+    said = ""
+    if train:  # phase 10 (e)'s reference: two train steps of the same UNet on one rank
+        from ishapediting_tpu_torch.ops import hopper_kernels as hk
+
+        ucfg = dataclasses.replace(chairs.unet, dropout=TRAIN_TP_DROPOUT)
+        hk.reset_launch_counts()
+        state, tr = train_steps(model, ucfg, device)
+        check_launches(hk, "one-rank reference train steps (2)", {k: 2 * v for k, v in train_step_launches(
+            hk, ucfg).items()}, totals)
+        out["train"] = tr
+        del state
+        said = (f"; two train steps at batch {TRAIN_TP_BATCH} (dropout {TRAIN_TP_DROPOUT}, remat, grad_clip {TRAIN_TP_CLIP}): "
+                f"{', '.join(f'{s:.2f}' for s in tr['step_s'])} s, peak {tr['peak_gib']:.2f} GiB, "
+                f"{tr['state_bytes']} bytes of parameters, EMA and moments")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
     say(f"  one-rank reference (phase 4's chairs UNet with signal in its zeroed weights): a forward at "
-        f"batch 2 and DDIM-10 at batch 2, written to {os.path.relpath(SIGNAL_DIR, ROOT)}, {out['wall_s']:.1f} s")
+        f"batch 2 and DDIM-10 at batch 2, written to {os.path.relpath(SIGNAL_DIR, ROOT)}{said}; "
+        f"{out['wall_s']:.1f} s")
     return out
 
 
@@ -2711,8 +2815,8 @@ def mini_tp_model():
 def mini_tp_runs(model, inputs, dev, remat) -> dict:
     """The guidance gradient (d/dx of weighted output and feature tap) and
     ``update_latent_params`` + a 2-step ``drag_edit`` with the recorded
-    noises on a ``DragEngine`` (the tiny pipeline, w_time 2) over
-    ``model``."""
+    noises on a ``DragEngine`` (the tiny pipeline at ``MINI_TP_STEPS``
+    steps, w_time 2) over ``model``."""
     from ishapediting_tpu_torch.config import UNetConfig, preset
     from ishapediting_tpu_torch.edit.engine import DragEngine
 
@@ -2720,7 +2824,7 @@ def mini_tp_runs(model, inputs, dev, remat) -> dict:
     out, feat = model(x, inputs["mini_t"].to(dev), feat_layer=MINI_TP_FEAT, remat=remat)
     loss = (out * inputs["w_out"].to(dev)).sum() + (feat * inputs["w_feat"].to(dev)).sum()
     grad = torch.autograd.grad(loss, x)[0].cpu()
-    tiny = preset("tiny")
+    tiny = preset("tiny", MINI_TP_STEPS)
     cfg = dataclasses.replace(tiny, unet=UNetConfig(**MINI_TP),
                               edit=dataclasses.replace(tiny.edit, w_time=2, feat_layer=MINI_TP_FEAT))
     eng = DragEngine(cfg, unet=model, seed=0, device=dev, remat=remat)
@@ -2730,14 +2834,15 @@ def mini_tp_runs(model, inputs, dev, remat) -> dict:
 
 
 def mini_tp_launches(remat) -> dict:
-    """Launches of ``mini_tp_runs``: 13 forwards (the gradient's, 10
-    sampling steps, 2 drag steps); under remat the gradient's backward
-    recomputes every block and each drag step's those its tap reaches."""
+    """Launches of ``mini_tp_runs``: ``MINI_TP_STEPS`` + 3 forwards (the
+    gradient's, the sampling steps, 2 drag steps); under remat the
+    gradient's backward recomputes every block and each drag step's those
+    its tap reaches."""
     from ishapediting_tpu_torch.config import UNetConfig
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward, kernel_calls_recomputed
 
     cfg = UNetConfig(**MINI_TP)
-    gn, attn = (13 * c for c in kernel_calls_per_forward(cfg))
+    gn, attn = ((MINI_TP_STEPS + 3) * c for c in kernel_calls_per_forward(cfg))
     if remat:
         head, tap = kernel_calls_recomputed(cfg, -1, head=True), kernel_calls_recomputed(cfg, MINI_TP_FEAT)
         gn, attn = gn + head[0] + 2 * tap[0], attn + head[1] + 2 * tap[1]
@@ -2790,11 +2895,11 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     def tag(msg):
         say(f"  [rank {rank}] {msg}")
 
-    # (a) the chairs UNet built on the CPU (phase 4's weights, signal in its zero modules), cut
+    # (a) the chairs UNet built on the CPU (phase 4's weights, signal in its zero modules), cut; (e) trains it
     chairs = preset(preset_name, 10, use_ddim=True)
     per_fwd = kernel_calls_per_forward(chairs.unet)
     t0 = time.perf_counter()
-    model = signal_chairs(dev, preset_name)
+    model = signal_chairs(dev, preset_name, dropout=TRAIN_TP_DROPOUT)
     res["whole_bytes"] = param_bytes(model)
     res["build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2847,7 +2952,7 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
         tag(f"decode_grid_sharded {grid_res}^3 over {mesh.shape}: slab {res['slab_shape']} in {res['slab_s']:.3f} s; "
             f"gathered, bit-equal to decode_grid")
         del ref
-    del engine, model, slab, grid, planes, out
+    del engine, slab, grid, planes, out
     torch.cuda.empty_cache()
 
     # (b) the fp32 miniature's guidance gradient and a 2-step drag, cut and whole, without and with remat
@@ -2882,6 +2987,55 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     check_counts(hk, f"rank {rank} cli.serve", counter.n, per_fwd, totals)
     tag(f"cli.serve over the ranks: {counter.n} UNet forwards, wall {res['serve_wall_s']:.1f} s")
 
+    # (e) the chairs UNet cut over the model axis trains: two steps on the reference's draws
+    from ishapediting_tpu_torch.config import UNetConfig
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.io.checkpoint import load_train_state, save_train_state
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
+
+    ucfg = dataclasses.replace(chairs.unet, dropout=TRAIN_TP_DROPOUT)
+    sync()
+    hk.reset_launch_counts()
+    ptensor.reset_gather_counts()
+    state, tr = train_steps(model, ucfg, dev, mesh)
+    check_launches(hk, f"rank {rank} cut train steps (2)", {k: 2 * v for k, v in train_step_launches(
+        hk, ucfg).items()}, totals)
+    tensors["train_norms"] = tr.pop("norms")
+    res["train"] = dict(tr, gathers=ptensor.GATHERS["calls"], gloo_s=ptensor.GATHERS["s"],
+                        whole_state_bytes=4 * res["whole_bytes"])
+    tag(f"cut train steps at global batch {TRAIN_TP_BATCH}: {', '.join(f'{x:.2f}' for x in tr['step_s'])} s "
+        f"(first, steady), peak {tr['peak_gib']:.2f} GiB, {tr['state_bytes']} bytes of parameters, EMA and "
+        f"moments ({tr['state_bytes'] / res['train']['whole_state_bytes']:.4f} of one rank's), "
+        f"{res['train']['gathers']} gathers in {res['train']['gloo_s']:.2f} s")
+    del state, model
+    torch.cuda.empty_cache()
+
+    # (e) the fp32 miniature: one step cut and whole on the same draws; a checkpoint saved cut, loaded whole
+    mcfg = UNetConfig(**MINI_TP)
+    sched = make_schedule(1000, "linear", "")
+    states = {}
+    for label, m in (("cut", ptensor.shard_params_tp(mini_tp_model(), mesh)), ("whole", mini_tp_model().to(dev))):
+        st = init_train_state(m, make_optimizer(m.parameters(), 1e-4, grad_clip=1.0))
+        x, draws = train_draws(mcfg, 0, dev)
+        sync()
+        hk.reset_launch_counts()
+        res[f"mini_train_{label}"] = make_train_step(mcfg, sched, mesh=mesh if label == "cut" else None)(
+            st, x, **draws)
+        check_launches(hk, f"rank {rank} miniature train step ({label})", train_step_launches(hk, mcfg), totals)
+        states[label] = st
+    cut_params = ptensor.gather_named(states["cut"].model, dict(states["cut"].model.named_parameters()))
+    tensors["mini_train_cut"] = {k: v.detach().cpu() for k, v in cut_params.items()}
+    tensors["mini_train_whole"] = {k: v.detach().cpu() for k, v in states["whole"].model.named_parameters()}
+    ckpt = os.path.join(work, "mini_cut_ckpt")
+    save_train_state(ckpt, states["cut"], mesh)
+    fresh = mini_tp_model().to(dev)
+    load_train_state(ckpt, init_train_state(fresh, make_optimizer(fresh.parameters(), 1e-4, grad_clip=1.0)))
+    res["mini_ckpt_equal"] = all(torch.equal(p.detach().cpu(), tensors["mini_train_cut"][k])
+                                 for k, p in fresh.named_parameters())
+    tag(f"fp32 miniature train step cut / whole: loss {res['mini_train_cut']['loss']:.6g} / "
+        f"{res['mini_train_whole']['loss']:.6g}; cut checkpoint loaded whole, bit-equal: {res['mini_ckpt_equal']}")
+    del states, fresh
+
     res["totals"] = totals
     res["wall_s"] = time.perf_counter() - t_start
     counter.close()
@@ -2890,6 +3044,14 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     torch.save(tensors, os.path.join(work, f"rank{rank}.pt"))
     pmesh.barrier()
     torch.distributed.destroy_process_group()
+
+
+def norms_rel_err(got, want) -> float:
+    """The largest error of per-parameter gradient norms, each relative to
+    the larger of its own and 1e-3 of the whole gradient's norm."""
+    got, want = got.double(), want.double()
+    floor = 1e-3 * float(want.square().sum().sqrt())
+    return float(((got - want).abs() / want.clamp_min(floor)).max())
 
 
 def tp_phase(totals, card, ref, device="cuda") -> dict:
@@ -2990,19 +3152,192 @@ def tp_phase(totals, card, ref, device="cuda") -> dict:
     if not max(serve_err) <= 2e-2:
         fail("phase 10 (d): the served triplanes disagree with the one-rank samples of the same weights")
 
+    # (e) the cut train steps against the one-rank reference's; the miniature cut against whole
+    rt = ref["train"]
+    e_err = {}
+    for i in range(2):
+        for k in ("loss", "mse", "vb", "grad_norm"):
+            want = rt["metrics"][i][k]
+            e_err[f"step{i + 1}_{k}"] = max(abs(r["train"]["metrics"][i][k] - want) / abs(want) for r in ranks)
+        e_err[f"step{i + 1}_param_grad_norms"] = max(norms_rel_err(r["tensors"]["train_norms"][i], rt["norms"][i])
+                                                     for r in ranks)
+    say(f"  (e) chairs UNet over the model axis, two train steps at global batch {TRAIN_TP_BATCH} against one "
+        f"rank (relative, tol {TRAIN_TP_METRIC_TOL:g} on loss, mse, vb and grad_norm, {TRAIN_TP_NORMS_TOL:g} on "
+        f"each of the {len(rt['norms'][0])} parameters' clipped gradient norms; grad_clip {TRAIN_TP_CLIP}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in e_err.items()))
+    say("  (e) measured: one-rank " + ", ".join(f"step {i + 1} loss {m['loss']:.6g} mse {m['mse']:.6g} vb "
+                                                 f"{m['vb']:.6g} grad_norm {m['grad_norm']:.6g}"
+                                                 for i, m in enumerate(rt["metrics"]))
+        + "; rank 0 " + ", ".join(f"step {i + 1} loss {m['loss']:.6g} mse {m['mse']:.6g} vb {m['vb']:.6g} "
+                                  f"grad_norm {m['grad_norm']:.6g}" for i, m in enumerate(ranks[0]["train"]["metrics"])))
+    if not all(v <= (TRAIN_TP_NORMS_TOL if k.endswith("param_grad_norms") else TRAIN_TP_METRIC_TOL)
+               for k, v in e_err.items()):
+        fail("phase 10 (e): the cut train steps disagree with the one-rank steps")
+    if not all(m["grad_norm"] > TRAIN_TP_CLIP for m in rt["metrics"]):
+        fail(f"phase 10 (e): the gradient's global norm is below grad_clip {TRAIN_TP_CLIP}: the clip did not run")
+    m_err = {k: max(abs(r["mini_train_cut"][k] - r["mini_train_whole"][k]) / abs(r["mini_train_whole"][k])
+                    for r in ranks) for k in ("loss", "grad_norm")}
+    m_err["params"] = max(rel_l2(torch.cat([v.reshape(-1) for v in r["tensors"]["mini_train_cut"].values()]).numpy(),
+                                 torch.cat([v.reshape(-1) for v in r["tensors"]["mini_train_whole"].values()]).numpy())
+                          for r in ranks)
+    say(f"  (e) fp32 miniature train step cut against whole (relative, tol 1e-4): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in m_err.items())
+        + f"; cut checkpoint loaded whole bit-equal on every rank: {all(r['mini_ckpt_equal'] for r in ranks)}")
+    if not (max(m_err.values()) <= 1e-4 and all(r["mini_ckpt_equal"] for r in ranks)):
+        fail("phase 10 (e): the miniature's cut train step or checkpoint disagrees with the whole one")
+
     for r in ranks:
         for k, v in r["totals"].items():
             totals[k] = totals.get(k, 0) + v
     shutil.rmtree(d)
     out = dict(wall_s=wall, forward_rel_l2=fwd_err, ddim_rel_l2=ddim_err, mini_rel_l2=b_err, serve_rel_l2=serve_err,
+               train_rel_err=e_err, mini_train_rel_err=m_err, reference_train={
+                   k: v for k, v in rt.items() if k != "norms"},
+               train_param_grad_norms={  # each step's clipped gradient norm per parameter
+                   who: [[float(f"{x:.6g}") for x in n.tolist()] for n in norms]
+                   for who, norms in (("one_rank", rt["norms"]), ("rank0", ranks[0]["tensors"]["train_norms"]))},
                serve_responses=[{k: v for k, v in m.items() if k in ("cmd", "ok", "sample_s", "decode_s")}
                                 for m in responses],
                ranks=[{k: v for k, v in r.items() if k != "tensors"} for r in ranks])
     say(f"  ({card}) phase 10 over {RANKS} ranks sharing the card (gloo): "
         + "; ".join(f"rank {r['rank']}: {r['param_bytes']} parameter bytes, peak {r['peak_gib']:.2f} GiB in (a), "
                     f"forward {r['forward_s']:.3f} s ({r['gathers']} gathers, {r['gather_s']:.3f} s), DDIM-10 "
-                    f"{r['ddim_s']:.2f} s, serve {r['serve_wall_s']:.1f} s, wall {r['wall_s']:.1f} s" for r in ranks)
+                    f"{r['ddim_s']:.2f} s, serve {r['serve_wall_s']:.1f} s, train steps "
+                    f"{r['train']['step_s'][0]:.2f} / {r['train']['step_s'][1]:.2f} s (peak {r['train']['peak_gib']:.2f} "
+                    f"GiB, {r['train']['state_bytes']} state bytes, gloo {r['train']['gloo_s']:.2f} s), "
+                    f"wall {r['wall_s']:.1f} s" for r in ranks)
         + f"; phase wall {wall:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: a model dir and a train state the JAX package wrote with orbax
+# ---------------------------------------------------------------------------
+
+
+ORBAX_ASSETS = os.path.join(ROOT, "tests", "assets", "orbax")  # tests/assets/make_orbax_assets.py wrote it
+ORBAX_DDIM_ATOL = 1e-3  # the card's fp32 kernels against JAX on the CPU after 10 DDIM steps
+
+
+def tree_items(tree, prefix=""):
+    """(path, tensor) of every array leaf of a ``load_params`` tree, its
+    dict keys and list indices joined by '/' (``None`` leaves skipped)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [] if tree is None else [(prefix, tree)]
+    return [kv for k, v in items for kv in tree_items(v, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def leaf_record(t) -> dict:
+    bf16 = t.dtype == torch.bfloat16
+    arr = np.ascontiguousarray((t.view(torch.uint16) if bf16 else t).numpy())
+    return {"sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "dtype": "bfloat16" if bf16 else str(arr.dtype), "shape": list(arr.shape)}
+
+
+def orbax_phase(hk, counter, totals, card) -> dict:
+    """Phase 11: the committed fixture (``tests/assets/orbax``: a tiny model
+    dir and a train state the JAX package saved with orbax) on the card:
+    ``DragEngine.from_model_dir`` and every leaf against ``sha256.json``;
+    DDIM-10 from its x_T through the kernels against JAX's latents;
+    ``cli.decode --model_dir``; ``train`` resumed from the JAX ``step_3``
+    for one step; the reader's MB/s."""
+    from ishapediting_tpu_torch.cli.decode import main as decode_main
+    from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.core.diffusion import ddim_sample_loop
+    from ishapediting_tpu_torch.core.schedule import make_schedule
+    from ishapediting_tpu_torch.edit.engine import DragEngine
+    from ishapediting_tpu_torch.io.orbax import load_params
+    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.train.loop import train
+
+    out = {}
+    model_dir = os.path.join(ORBAX_ASSETS, "model")
+    cfg = preset("tiny", 10, use_ddim=True)
+    t0 = time.perf_counter()
+    engine = DragEngine.from_model_dir(model_dir, config=cfg, device="cuda")
+    sync()
+    out["from_model_dir_s"] = time.perf_counter() - t0
+    with open(os.path.join(ORBAX_ASSETS, "sha256.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    trees = {name: load_params(os.path.join(ORBAX_ASSETS, name)) for name in want}
+    out["read_s"] = time.perf_counter() - t0
+    out["read_bytes"] = sum(os.path.getsize(os.path.join(dp, n)) for name in want
+                            for dp, _, ns in os.walk(os.path.join(ORBAX_ASSETS, name)) for n in ns)
+    out["read_mb_s"] = out["read_bytes"] / out["read_s"] / 1e6
+    out["leaves"] = 0
+    for name, leaves in want.items():
+        got = dict(tree_items(trees[name]))
+        if sorted(got) != sorted(leaves) or any(leaf_record(v) != leaves[k] for k, v in got.items()):
+            fail(f"phase 11: {name} read by the port differs from the leaves JAX restored (sha256.json)")
+        out["leaves"] += len(got)
+    say(f"  read {out['leaves']} leaves of 3 orbax trees ({out['read_bytes']} bytes) in {out['read_s']:.3f} s "
+        f"({out['read_mb_s']:.1f} MB/s), each equal to sha256.json; from_model_dir on the card "
+        f"{out['from_model_dir_s']:.3f} s")
+
+    npz = np.load(os.path.join(ORBAX_ASSETS, "jax_ddim.npz"))
+    x_T = torch.from_numpy(npz["x_T"]).cuda()
+    per_fwd = kernel_calls_per_forward(cfg.unet)
+    with torch.no_grad():
+        lat, out["ddim_s"], _ = counted(
+            hk, counter, per_fwd, totals, "orbax model DDIM-10 at batch 2",
+            lambda: ddim_sample_loop(engine.sched, engine.model_fn(), x_T, clip_denoised=cfg.diffusion.clip_denoised),
+            10, attn_kernel="attention_generic")
+    lat = lat.cpu().numpy()
+    out["ddim_max_abs_err"] = float(np.abs(lat - npz["ddim"]).max())
+    say(f"  DDIM-10 of the JAX-trained dir from JAX's x_T on the card: max |err| {out['ddim_max_abs_err']:.2e} "
+        f"against JAX's latents (tol {ORBAX_DDIM_ATOL}), {out['ddim_s']:.3f} s")
+    if not out["ddim_max_abs_err"] <= ORBAX_DDIM_ATOL:
+        fail("phase 11: DDIM-10 of the orbax model dir disagrees with JAX's latents")
+
+    d = os.path.join(WORK, "orbax")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    planes = os.path.join(d, "latent0.npy")
+    np.save(planes, lat[0].transpose(2, 0, 1))  # identity statistics: the triplane is the latent
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        meshes = decode_main(["--input", planes, "--output", os.path.join(d, "latent0.obj"), "--model_dir",
+                              model_dir, "--res", "64", "--device", "cuda"])
+    out["decode_s"] = time.perf_counter() - t0
+    if not os.path.exists(os.path.join(d, "latent0.obj")):
+        fail("phase 11: cli.decode --model_dir on the orbax dir wrote no mesh")
+    say(f"  cli.decode --model_dir (decoder.orbax) at 64^3: {len(meshes[0].vertices)} vertices, "
+        f"{out['decode_s']:.2f} s")
+
+    ckpt = os.path.join(d, "train")
+    shutil.copytree(os.path.join(ORBAX_ASSETS, "train"), ckpt)
+    seen = {}
+
+    def watch(step):
+        def run(state, batch, gen):
+            seen["metrics"] = step(state, batch, gen)
+            return seen["metrics"]
+        return run
+
+    rng = np.random.default_rng(11)
+    batches = (np.clip(rng.standard_normal((2,) + cfg.latent_shape), -1, 1).astype(np.float32) for _ in range(9))
+    model = UNetModel(cfg.unet).cuda()
+    sync()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = train(cfg.unet, make_schedule(cfg.diffusion.base_steps, cfg.diffusion.noise_schedule, ""), model,
+                      batches, total_steps=4, ckpt_dir=ckpt, log_every=100, step_transform=watch)
+    sync()
+    out["resume_s"] = time.perf_counter() - t0
+    check_launches(hk, "train resumed from the JAX step_3 (1 step)", train_step_launches(hk, cfg.unet), totals)
+    out["resumed_step"], out["resumed_loss"] = state.step, seen["metrics"]["loss"]
+    say(f"  train resumed from the JAX train state step_3 on the card: step {state.step}, loss "
+        f"{out['resumed_loss']:.6g}, {out['resume_s']:.2f} s (load, one step, a save)")
+    if state.step != 4 or not math.isfinite(out["resumed_loss"]):
+        fail("phase 11: the resumed JAX train state did not reach step 4 with a finite loss")
+    shutil.rmtree(d)
+    say(f"  ({card}) phase 11: reader {out['read_mb_s']:.1f} MB/s")
     return out
 
 
@@ -3055,7 +3390,7 @@ def main() -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description="Drive the port once on one CUDA card")
-    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8,9,10",
+    parser.add_argument("--phases", type=str, default="2,3,4,5,6,7,8,9,10,11",
                         help="phases to run after the build (a partial run prints no result line)")
     parser.add_argument("--rank-worker", type=str, default=None,
                         help="run as one rank of phase 9 (torchrun starts these), writing into this dir")
@@ -3157,7 +3492,7 @@ def main() -> None:
     if 9 in phases or 10 in phases:
         begin("9-10 reference")
         say("[9-10] the one-rank reference of phases 9 and 10")
-        ref = signal_reference()
+        ref = signal_reference(totals, train=10 in phases)
     if 9 in phases:
         begin("9")
         say(f"[9] {RANKS} ranks sharing the card over gloo (one torchrun launch): cli.generate DDIM-10 at "
@@ -3168,11 +3503,18 @@ def main() -> None:
         begin("10")
         say(f"[10] {RANKS} ranks sharing the card over gloo (one torchrun launch): the chairs UNet cut over "
             "the model axis (forward, DDIM-10), the fp32 miniature's guidance gradient and drag, "
-            "decode_grid_sharded over the 2-D mesh, cli.serve over the ranks")
+            "decode_grid_sharded over the 2-D mesh, cli.serve over the ranks, two train steps of the cut UNet, "
+            "the miniature's cut train step and checkpoint")
         model_axis = tp_phase(totals, card, ref)
     shutil.rmtree(SIGNAL_DIR, ignore_errors=True)
+    if 11 in phases:
+        begin("11")
+        say("[11] the JAX package's orbax checkpoints on the card: the committed tiny model dir (every leaf "
+            "against its hash, DDIM-10 against JAX's latents, cli.decode --model_dir) and train resumed "
+            "from its train state")
+        orbax = orbax_phase(hk, counter, totals, card)
     counter.close()
-    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10}:
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10, 11}:
         say(f"phase walls (s): {json.dumps(phase_walls())}")
         say(f"partial run (phases {sorted(phases)}): total {time.perf_counter() - t_start:.1f} s; "
             f"launches {totals}; no result line")
@@ -3211,6 +3553,7 @@ def main() -> None:
     say("host modules: " + json.dumps(host, default=float))
     say("ranks: " + json.dumps(ranks, default=float))
     say("model axis: " + json.dumps(model_axis, default=float))
+    say("orbax: " + json.dumps(orbax, default=float))
     say(f"phase walls (s): {json.dumps(phase_walls())}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

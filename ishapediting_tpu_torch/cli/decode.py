@@ -6,9 +6,10 @@ triplane_decoder/visualize.py ``main()``, :108-128).
 
 Takes the reference layout ([96,H,W] or [3,32,H,W] NCHW, physical scale:
 what ``cli.generate`` and the reference's ``generate.py`` save) and NHWC
-[3,H,W,32]. The decoder comes from a torch ``.pt`` state_dict, a category
-``--model_dir`` or ``--random_init`` for smoke tests; an orbax checkpoint
-of the JAX package is refused until the port reads orbax. Several inputs
+[3,H,W,32]. The decoder comes from a torch ``.pt`` state_dict or the JAX
+package's orbax directory, a category ``--model_dir`` (its
+``decoder.orbax`` preferred over a ``.pt``, as the JAX package's CLI does)
+or ``--random_init`` for smoke tests. Several inputs
 decode in one process, ``--smooth`` applies the engine's Laplacian
 smoothing and ``--cross_section`` saves the mid-plane occupancy image
 (reference: visualize.py:10-33). Decoding runs on the card unless
@@ -21,9 +22,6 @@ import argparse
 import os
 import time
 
-_ORBAX = "reading orbax waits for the orbax reader (ROADMAP, Queue 1: io/orbax); give a torch .pt"
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Decode triplane .npy files to .obj meshes")
     p.add_argument("--input", type=str, nargs="+", required=True,
@@ -32,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", type=str, required=True,
                    help=".obj path (single input) or directory (writes <stem>.obj per input)")
     p.add_argument("--model_path", type=str, default=None,
-                   help="decoder checkpoint: a torch .pt state_dict")
+                   help="decoder checkpoint: a torch .pt state_dict or the JAX package's orbax dir")
     p.add_argument("--model_dir", type=str, default=None,
                    help="category dir: finds the decoder like cli.generate (io/model_dir.py)")
     p.add_argument("--random_init", action="store_true", help="random decoder weights (smoke tests)")
@@ -53,19 +51,19 @@ def _load_decoder(args, in_channels: int, device):
 
     from ishapediting_tpu_torch.io.convert import load_torch_decoder
     from ishapediting_tpu_torch.io.model_dir import discover_model_dir
+    from ishapediting_tpu_torch.io.orbax import load_decoder
     from ishapediting_tpu_torch.ops.triplane import TriplaneDecoder, init_decoder_
 
     if args.model_path:
         if os.path.isdir(args.model_path):
-            raise SystemExit(f"--model_path {args.model_path} is a directory (an orbax checkpoint "
-                             f"of the JAX package?): {_ORBAX}")
+            return load_decoder(args.model_path, TriplaneDecoder(in_channels)).to(device)
         return load_torch_decoder(args.model_path, TriplaneDecoder(in_channels)).to(device)
     if args.model_dir:
         info = discover_model_dir(args.model_dir)
+        if info.decoder_orbax:
+            return load_decoder(info.decoder_orbax, TriplaneDecoder(in_channels)).to(device)
         if info.decoder_ckpt:
             return load_torch_decoder(info.decoder_ckpt, TriplaneDecoder(in_channels)).to(device)
-        if os.path.isdir(os.path.join(args.model_dir, "decoder.orbax")):
-            raise SystemExit(f"{args.model_dir} holds only an orbax decoder (decoder.orbax): {_ORBAX}")
         raise SystemExit(f"no decoder checkpoint found under {args.model_dir}")
     if args.random_init:
         # the input's plane channels: tiny-preset planes carry 2, the published decoder 32

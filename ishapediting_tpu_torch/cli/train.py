@@ -43,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "ema_<step>.pt, <preset>_decoder.pt, statistics/) that "
                         "DragEngine.from_model_dir loads")
     p.add_argument("--decoder_from", type=str, default=None,
-                   help="decoder .pt (reference MultiTriplane.net state_dict) for --export_model_dir")
+                   help="decoder for --export_model_dir: a .pt (reference MultiTriplane.net "
+                        "state_dict) or the JAX package's decoder.orbax dir")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -114,18 +115,29 @@ def main(argv=None):
 
 
 def export_model_dir(out_dir: str, ema_params, step: int, name: str, decoder_from=None,
-                     stats_dir=None, channels: int = 96, plane_channels: int = 32) -> None:
+                     stats_dir=None, channels: int = 96, plane_channels: int = 32, model=None,
+                     mesh=None) -> None:
     """Write a servable category directory in the reference's asset layout
     (drag_utils.py:213-228): ``ddpm_<name>_ckpts/ema_<step>.pt`` (the EMA
     UNet state_dict), ``<name>_decoder.pt`` (read from ``decoder_from``, a
-    torch ``.pt``) and ``statistics/`` (copied from ``stats_dir``, or
-    explicit identity bounds when absent). ``DragEngine.from_model_dir``
-    loads the result."""
+    torch ``.pt`` or the JAX package's orbax directory) and ``statistics/``
+    (copied from ``stats_dir``, or explicit identity bounds when absent).
+    ``DragEngine.from_model_dir`` loads the result. A cut model's EMA
+    (``model`` cut by ``shard_params_tp``) is gathered whole first; over a
+    ``mesh`` every rank calls this, the first writes and the others wait."""
     import torch
 
     from ishapediting_tpu_torch.io.convert import load_torch_decoder
     from ishapediting_tpu_torch.ops.triplane import TriplaneDecoder
+    from ishapediting_tpu_torch.parallel.tensor import gather_named
 
+    if model is not None:
+        ema_params = gather_named(model, ema_params)
+    if mesh is not None and mesh.n_ranks > 1:
+        if mesh.rank == 0:
+            export_model_dir(out_dir, ema_params, step, name, decoder_from, stats_dir, channels, plane_channels)
+        torch.distributed.barrier(group=mesh.mesh_group)
+        return
     os.makedirs(out_dir, exist_ok=True)
     ckpts = os.path.join(out_dir, f"ddpm_{name}_ckpts")
     os.makedirs(ckpts, exist_ok=True)
@@ -133,12 +145,11 @@ def export_model_dir(out_dir: str, ema_params, step: int, name: str, decoder_fro
                os.path.join(ckpts, f"ema_{step}.pt"))
     if decoder_from:
         if os.path.isdir(decoder_from):
-            raise SystemExit(
-                f"--decoder_from {decoder_from} is a directory (an orbax checkpoint of the JAX "
-                "package?): reading orbax waits for the orbax reader (ROADMAP, Queue 1: io/orbax); "
-                "give a torch .pt"
-            )
-        dec = load_torch_decoder(decoder_from, TriplaneDecoder(plane_channels))
+            from ishapediting_tpu_torch.io.orbax import load_decoder
+
+            dec = load_decoder(decoder_from, TriplaneDecoder(plane_channels))
+        else:
+            dec = load_torch_decoder(decoder_from, TriplaneDecoder(plane_channels))
         torch.save(dec.state_dict(), os.path.join(out_dir, f"{name}_decoder.pt"))
     else:
         print(

@@ -153,16 +153,20 @@ class DragEngine:
         **kw,
     ) -> "DragEngine":
         """Load a reference-layout category directory of ``.pt`` checkpoints
-        and statistics (reference: drag_utils.py:213-249). A missing
-        ``statistics/`` is an error unless ``allow_identity_stats``."""
+        and statistics (reference: drag_utils.py:213-249), or of the JAX
+        package's ``unet.orbax`` / ``decoder.orbax``, which are preferred
+        over the ``.pt`` files when both are there (as the JAX package's
+        loader does). A missing ``statistics/`` is an error unless
+        ``allow_identity_stats``."""
         from ishapediting_tpu_torch.io.convert import load_torch_checkpoint, load_torch_decoder
+        from ishapediting_tpu_torch.io.orbax import load_decoder, load_unet_state_dict
 
         config = config or PipelineConfig()
         info = discover_model_dir(main_path)
-        if not info.unet_ckpt:
-            raise FileNotFoundError(f"no ddpm*/ema* checkpoint under {main_path}")
-        if not info.decoder_ckpt:
-            raise FileNotFoundError(f"no decoder .pt under {main_path}")
+        if not (info.unet_orbax or info.unet_ckpt):
+            raise FileNotFoundError(f"no ddpm*/ema* checkpoint or unet.orbax under {main_path}")
+        if not (info.decoder_orbax or info.decoder_ckpt):
+            raise FileNotFoundError(f"no decoder .pt or decoder.orbax under {main_path}")
         if info.stats_dir:
             stats = load_stats(info.stats_dir)
         elif allow_identity_stats:
@@ -177,8 +181,16 @@ class DragEngine:
                 "statistics/<name>/{lower_bound,upper_bound}.npy); pass "
                 "allow_identity_stats=True to load anyway"
             )
-        unet = load_torch_checkpoint(info.unet_ckpt, UNetModel(config.unet))
-        decoder = load_torch_decoder(info.decoder_ckpt, TriplaneDecoder(config.plane_channels))
+        unet = UNetModel(config.unet)
+        if info.unet_orbax:
+            unet.load_state_dict(load_unet_state_dict(info.unet_orbax))
+        else:
+            load_torch_checkpoint(info.unet_ckpt, unet)
+        decoder = TriplaneDecoder(config.plane_channels)
+        if info.decoder_orbax:
+            load_decoder(info.decoder_orbax, decoder)
+        else:
+            load_torch_decoder(info.decoder_ckpt, decoder)
         return cls(config=config, unet=unet, decoder=decoder, stats=stats, device=device, **kw)
 
     # ------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """Headless mesh rendering (the GUI's save-picture capability without
 Open3D; reference: main.py:345-367 renders on a white background).
 
-A NumPy z-buffer rasterizer with Lambertian shading, pixel for pixel the JAX
+A z-buffer rasterizer with Lambertian shading, pixel for pixel the JAX
 package's (``geometry/render.py``), which rasterizes one triangle per Python
-iteration. Here the triangles' bounding-box pixels are expanded in chunks
-and each pixel keeps its nearest candidate, the earliest of the far-first
-order among equal depths: what the sequential strict ``<`` z-test keeps. A
-256^3 mesh of tens of millions of triangles then renders in seconds.
+iteration: the projection, shading and drawing order are NumPy here, and
+the loop over the triangles' pixels is native C++
+(``native.raster_triangles``: the same float64 expressions, the sequential
+strict ``<`` z-test, rows split over the host's cores), where a Python
+loop over a 256^3 mesh's tens of millions of triangles would take
+minutes.
 
 PNGs are written with the standard library (``zlib``, ``struct``); no
 imaging package is needed.
@@ -20,10 +22,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from ishapediting_tpu_torch import native
 from ishapediting_tpu_torch.geometry.mesh import TriMesh
-
-CHUNK_PIXELS = 1 << 22  # candidate pixels per chunk
-
 
 def _look_at(eye: np.ndarray, center: np.ndarray, up: np.ndarray) -> np.ndarray:
     f = center - eye
@@ -114,44 +114,11 @@ def render_scene(
     d = (ys[:, 1] - ys[:, 2]) * (xs[:, 0] - xs[:, 2]) + (xs[:, 2] - xs[:, 1]) * (ys[:, 0] - ys[:, 2])
     keep = ~np.any(zs <= 1e-9, axis=1) & (x0 <= x1) & (y0 <= y1) & ~(np.abs(d) < 1e-12)
     kept = np.nonzero(keep)[0]
-    bw = (x1 - x0 + 1)[kept]
-    counts = bw * (y1 - y0 + 1)[kept]
     colors = base_colors[order] * shade[order][:, None]
 
     zbuf = np.full(height * width, np.inf)
     rgb = img.reshape(-1, 3)
-    ends = np.cumsum(counts)
-    start = 0
-    while start < len(kept):
-        base = ends[start - 1] if start else 0
-        stop = max(int(np.searchsorted(ends, base + CHUNK_PIXELS, side="right")), start + 1)
-        cnt = counts[start:stop]
-        rep = np.repeat(np.arange(start, stop), cnt)  # position in ``kept``
-        k = np.arange(int(cnt.sum())) - np.repeat(ends[start:stop] - cnt - base, cnt)
-        ti = kept[rep]  # drawing-order index
-        gx = x0[ti] + k % bw[rep]
-        gy = y0[ti] + k // bw[rep]
-        xa, xb, xc = xs[ti, 0], xs[ti, 1], xs[ti, 2]
-        ya, yb, yc = ys[ti, 0], ys[ti, 1], ys[ti, 2]
-        dd = d[ti]
-        w0 = ((yb - yc) * (gx - xc) + (xc - xb) * (gy - yc)) / dd
-        w1 = ((yc - ya) * (gx - xc) + (xa - xc) * (gy - yc)) / dd
-        w2 = 1.0 - w0 - w1
-        depth = w0 * zs[ti, 0] + w1 * zs[ti, 1] + w2 * zs[ti, 2]
-        ok = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (depth < np.inf)
-        pix = (gy * width + gx)[ok]
-        depth, ti = depth[ok], ti[ok]
-        # nearest per pixel; the stable sort keeps drawing order among ties
-        srt = np.lexsort((depth, pix))
-        pix, depth, ti = pix[srt], depth[srt], ti[srt]
-        first = np.ones(len(pix), bool)
-        first[1:] = pix[1:] != pix[:-1]
-        pix, depth, ti = pix[first], depth[first], ti[first]
-        closer = depth < zbuf[pix]
-        pix, depth, ti = pix[closer], depth[closer], ti[closer]
-        zbuf[pix] = depth
-        rgb[pix] = colors[ti]
-        start = stop
+    native.raster_triangles(xs, ys, zs, x0, x1, y0, y1, d, kept, colors, zbuf, rgb, width)
 
     zbuf = zbuf.reshape(height, width)
     hit = np.isfinite(zbuf)

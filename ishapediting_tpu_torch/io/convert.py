@@ -1,7 +1,8 @@
 """Weights into the port: from the JAX parameter tree, and from the
 reference's ``.pt`` files.
 
-The JAX tree (as NumPy arrays) is ``{prefix: {"w"|"b"|"scale"|"bias": ndarray}}``
+The JAX tree (NumPy arrays, or the tensors ``io/orbax.py::load_params``
+reads) is ``{prefix: {"w"|"b"|"scale"|"bias": array}}``
 with torch's dotted module names, so the conversion is the per-tensor
 inverse of the JAX package's torch -> JAX converter:
 
@@ -23,8 +24,15 @@ from ishapediting_tpu_torch.models.unet import UNetModel
 from ishapediting_tpu_torch.ops.triplane import TriplaneDecoder
 
 
+def _np(a) -> np.ndarray:
+    """An fp32 NumPy copy of a NumPy array or a tensor (bf16 included)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).numpy().copy()
+    return np.array(a, dtype=np.float32)
+
+
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    return torch.from_numpy(np.ascontiguousarray(_np(a)))
 
 
 def unet_state_dict_from_jax(params: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
@@ -35,7 +43,7 @@ def unet_state_dict_from_jax(params: Mapping[str, Mapping[str, np.ndarray]]) -> 
             sd[f"{prefix}.weight"] = _t(leaves["scale"])
             sd[f"{prefix}.bias"] = _t(leaves["bias"])
             continue
-        w = np.asarray(leaves["w"], np.float32)
+        w = _np(leaves["w"])
         if prefix == "label_emb":
             sd[f"{prefix}.weight"] = _t(w)
             continue
@@ -56,7 +64,7 @@ def decoder_state_dict_from_jax(dec: Mapping) -> Dict[str, torch.Tensor]:
     ``1/3/5.weight|bias``) from the JAX decoder tree."""
     sd = {"0._B": _t(dec["fourier_B"])}
     for idx, name in ((1, "dense1"), (3, "dense2"), (5, "dense3")):
-        sd[f"{idx}.weight"] = _t(np.asarray(dec[name]["w"]).T)
+        sd[f"{idx}.weight"] = _t(_np(dec[name]["w"]).T)
         sd[f"{idx}.bias"] = _t(dec[name]["b"])
     return sd
 

@@ -7,6 +7,10 @@ normalization.py:6-15)::
       ddpm_*_ckpts/ema_*.pt          DDPM EMA UNet state_dict
       *_decoder.pt  (any *.pt)       decoder MLP state_dict
       statistics/<name>/{lower_bound,upper_bound,means,stds}.npy
+
+and, in the same folder, the JAX package's orbax checkpoints
+(``unet.orbax/``, ``decoder.orbax/``, read by ``io/orbax.py``), which a
+loader prefers over the ``.pt`` files, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ class ModelDir:
     unet_ckpt: Optional[str] = None  # torch .pt
     decoder_ckpt: Optional[str] = None  # torch .pt
     stats_dir: Optional[str] = None
+    unet_orbax: Optional[str] = None  # the JAX package's orbax dir
+    decoder_orbax: Optional[str] = None  # the JAX package's orbax dir
 
 
 def discover_model_dir(main_path: str) -> ModelDir:
@@ -43,6 +49,10 @@ def discover_model_dir(main_path: str) -> ModelDir:
             subdirs = sorted(os.listdir(full))
             if subdirs:
                 info.stats_dir = os.path.join(full, subdirs[0])
+        elif name == "unet.orbax":
+            info.unet_orbax = full
+        elif name == "decoder.orbax":
+            info.decoder_orbax = full
     return info
 
 

@@ -1,5 +1,7 @@
 """Native C++ host geometry (marching tetrahedra, smoothing, triangle
-areas, OBJ writer and reader, point-in-mesh occupancy). Smoothing, areas
+areas, OBJ writer and reader, point-in-mesh occupancy), the renderer's
+z-buffer loop (``raster_triangles``), and the orbax reader's zstd decoder
+and CRC-32C (``zstd_decompress``, ``crc32c``). Smoothing, areas
 and occupancy split their loops over the host's cores (``std::thread``,
 joined before each call returns); their results do not depend on it.
 
@@ -75,6 +77,14 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_char_p, ctypes.POINTER(dp), ctypes.POINTER(lp),
             ctypes.POINTER(ll), ctypes.POINTER(ll),
         ]
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.zstd_decompress.restype = ll
+        lib.zstd_decompress.argtypes = [ctypes.c_char_p, ll, ctypes.POINTER(u8p), ctypes.POINTER(ll),
+                                        ctypes.c_char_p, ll]
+        lib.raster_triangles.restype = None
+        lib.raster_triangles.argtypes = [dp, dp, dp, lp, lp, lp, lp, dp, lp, ll, dp, ll, ll, dp, dp]
+        lib.crc32c.restype = ctypes.c_uint32
+        lib.crc32c.argtypes = [ctypes.c_char_p, ll]
         lib.points_occupancy.restype = None
         lib.points_occupancy.argtypes = [dp, ll, lp, ll, dp, ll, dp]
         lib.triangle_areas.restype = None
@@ -196,3 +206,47 @@ def native_points_occupancy(vertices: np.ndarray, triangles: np.ndarray, points:
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
     )
     return out
+
+
+def zstd_decompress(data: bytes) -> bytes:
+    """The content of the zstd frames in ``data`` (RFC 8878; skippable
+    frames skipped, content checksums verified). Raises ``ValueError`` on
+    input that is not valid zstd, or that names a dictionary."""
+    lib = get_lib()
+    data = bytes(data)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = ctypes.c_longlong()
+    err = ctypes.create_string_buffer(256)
+    if lib.zstd_decompress(data, len(data), ctypes.byref(out), ctypes.byref(n), err, len(err)):
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.free_buffers(out, None)
+
+
+def raster_triangles(xs, ys, zs, x0, x1, y0, y1, d, kept, colors, zbuf, rgb, width: int) -> None:
+    """``geometry/render.py``'s z-buffer loop: triangles ``kept`` (indices
+    into the drawing-order arrays: screen ``xs``, ``ys`` and depths ``zs``
+    [F, 3], pixel boxes ``x0..x1`` x ``y0..y1``, edge determinants ``d``,
+    ``colors`` [F, 3]) drawn into ``zbuf`` [H*W] and ``rgb`` [H*W, 3], in
+    place (float64 and int64, C order)."""
+    lib = get_lib()
+    dptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))  # noqa: E731
+    lptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong))  # noqa: E731
+    arrays = [np.ascontiguousarray(a, np.float64) for a in (xs, ys, zs, d, colors)]
+    boxes = [np.ascontiguousarray(a, np.int64) for a in (x0, x1, y0, y1, kept)]
+    for out in (zbuf, rgb):
+        if out.dtype != np.float64 or not out.flags.c_contiguous:
+            raise ValueError("zbuf and rgb must be C-contiguous float64")
+    xs, ys, zs, d, colors = arrays
+    x0, x1, y0, y1, kept = boxes
+    lib.raster_triangles(dptr(xs), dptr(ys), dptr(zs), lptr(x0), lptr(x1), lptr(y0), lptr(y1), dptr(d),
+                         lptr(kept), len(kept), dptr(colors), int(width), len(zbuf) // int(width),
+                         dptr(zbuf), dptr(rgb))
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli) of ``data``."""
+    data = bytes(data)
+    return int(get_lib().crc32c(data, len(data)))

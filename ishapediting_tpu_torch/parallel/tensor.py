@@ -24,13 +24,19 @@ collectives are list-form ``all_gather`` and ``all_reduce``, which gloo
 implements for CUDA tensors (``torch.distributed.nn.functional``'s backward
 uses others). The slices travel as their bytes (``uint8``, which gloo
 takes where it refuses ``int16``), so a gather is exact in every dtype.
+
+Training a cut model (``train/trainer.py``) keeps each rank's slices in the
+EMA and the Adam moments; ``cut_dims`` names each parameter's cut axis, and
+``gather_named`` / ``slice_named`` turn any tensors keyed and shaped like
+the parameters (EMA, moments, a checkpoint's whole tensors) into whole
+tensors or this rank's slices, as a checkpoint holds and loads them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -88,7 +94,57 @@ def cut_layers(model: nn.Module) -> List[Tuple[str, nn.Module]]:
 
 def is_cut(model: nn.Module) -> bool:
     """Whether ``shard_params_tp`` cut any layer of ``model``."""
-    return any(getattr(m, "model_axis", None) is not None for m in model.modules())
+    return model_axis(model) is not None
+
+
+def model_axis(model: nn.Module) -> Optional[ModelAxis]:
+    """The model axis ``model``'s cut layers lie on (None when uncut)."""
+    return next((m.model_axis for m in model.modules() if getattr(m, "model_axis", None) is not None), None)
+
+
+def cut_dims(model: nn.Module) -> Dict[str, Optional[int]]:
+    """Each parameter's cut axis, by ``named_parameters`` name: 0 for a cut
+    dense or conv weight and every cut bias, 1 for a cut embedding table,
+    None for a parameter held whole."""
+    out: Dict[str, Optional[int]] = {}
+    for prefix, mod in model.named_modules():
+        cut = getattr(mod, "model_axis", None) is not None
+        for key, _ in mod.named_parameters(recurse=False):
+            out[f"{prefix}.{key}" if prefix else key] = (_cut_dim(mod) if key == "weight" else 0) if cut else None
+    return out
+
+
+def gather_cut(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's slice along ``dim``:
+    the ranks' slices concatenated in rank order. Every rank of the axis
+    calls it; the bytes travel, so it is exact in every dtype."""
+    front = t.detach().movedim(dim, 0).contiguous()
+    bits = front.reshape(front.shape[0], -1).view(torch.uint8) if front.dim() > 1 else front.view(torch.uint8)
+    parts = [torch.empty_like(bits) for _ in range(axis.size)]
+    dist.all_gather(parts, bits, group=axis.group)
+    whole = torch.cat(parts).view(t.dtype)
+    return whole.reshape((-1,) + front.shape[1:]).movedim(0, dim)
+
+
+def slice_cut(t: torch.Tensor, dim: int, axis: ModelAxis) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``t`` along ``dim`` (a copy)."""
+    per = t.shape[dim] // axis.size
+    return t.narrow(dim, axis.index * per, per).clone()
+
+
+def gather_named(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``tensors`` keyed by ``model``'s parameter names (parameters, their
+    EMA or Adam moments), each cut one gathered whole over the model axis;
+    the others as they are. Every rank of the axis calls it."""
+    dims, axis = cut_dims(model), model_axis(model)
+    return {k: v if dims.get(k) is None else gather_cut(v, dims[k], axis) for k, v in tensors.items()}
+
+
+def slice_named(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of ``gather_named``: whole tensors keyed by ``model``'s
+    parameter names, each cut one narrowed to this rank's slice."""
+    dims, axis = cut_dims(model), model_axis(model)
+    return {k: v if dims.get(k) is None else slice_cut(v, dims[k], axis) for k, v in tensors.items()}
 
 
 @torch.no_grad()

@@ -14,6 +14,13 @@ the JAX package's ``train/loop.py``:
 Each step draws from a generator on the model's device seeded from
 (``seed``, step index), so a resumed run draws what an uninterrupted one
 would have.
+
+Over ranks (``mesh=``: a data axis of ``replicate``d models, a model axis
+of ``shard_params_tp``-cut ones, or both) every rank takes the same global
+batch and draws, the step keeps this rank's rows, and a checkpoint holds
+whole tensors written by the mesh's first rank: JAX's loop trains sharded
+parameters unchanged and saves them whole. ``latest_checkpoint`` takes the
+newest ``step_<N>`` of either package's format.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from ishapediting_tpu_torch.config import UNetConfig
 from ishapediting_tpu_torch.core.schedule import Schedule
 from ishapediting_tpu_torch.io.checkpoint import load_train_state, save_train_state
+from ishapediting_tpu_torch.parallel.mesh import DataMesh
 from ishapediting_tpu_torch.train.trainer import (
     TrainState,
     init_train_state,
@@ -68,10 +76,12 @@ def train(
     seed: int = 0,
     max_bad_steps: int = 20,
     step_transform: Optional[Callable] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> TrainState:
     """Run (or resume) training of ``model`` (its parameters are the
-    initial ones, trained in place on their device); returns the final
-    TrainState."""
+    initial ones, trained in place on their device; over ``mesh``'s ranks
+    ``replicate``d or cut by ``shard_params_tp``, and ``batches`` the same
+    global batches on every rank); returns the final TrainState."""
     logger = get_logger()
     state = init_train_state(model, make_optimizer(
         model.parameters(), lr, weight_decay=weight_decay, grad_clip=grad_clip))
@@ -79,7 +89,7 @@ def train(
     def save(step: int) -> None:
         path = os.path.join(ckpt_dir, f"step_{step}")
         t0 = time.perf_counter()
-        nbytes = save_train_state(path, state)
+        nbytes = save_train_state(path, state, mesh)
         logger.log(f"checkpointed {path} ({nbytes} bytes in {time.perf_counter() - t0:.2f} s)")
 
     start_step = 0
@@ -93,7 +103,7 @@ def train(
                        f"(loaded in {time.perf_counter() - t0:.2f} s)")
     saved_at = start_step if start_step else None
 
-    train_step = make_train_step(cfg, sched, ema_rate=ema_rate)
+    train_step = make_train_step(cfg, sched, ema_rate=ema_rate, mesh=mesh)
     if step_transform is not None:
         train_step = step_transform(train_step)
 

@@ -1,5 +1,5 @@
 """Port parity, the evaluation surfaces: ``cli.decode`` against the JAX
-package's in every plane layout it takes, its refusal of orbax checkpoints,
+package's in every plane layout it takes, its reading of orbax decoders,
 ``cli.eval``'s pair, directory and local rows against JAX's, and the
 solver sweep (``core/solver_eval.py``) against JAX's report from the same
 x_T and weights, then through ``cli.eval --solver_sweep``."""
@@ -94,16 +94,33 @@ def test_cli_decode_many_inputs_smooth_and_random_init(tmp_path):
         assert (out / f"s{i}.obj").exists() and (out / f"s{i}_cross.png").exists()
 
 
-def test_cli_decode_refuses_orbax_and_defaults_to_cuda(tmp_path, decoder_pt, monkeypatch):
+def test_cli_decode_reads_orbax_and_defaults_to_cuda(tmp_path, decoder_pt, monkeypatch):
+    """A decoder the JAX package saved with orbax (``--model_path`` its dir,
+    or ``--model_dir`` holding ``decoder.orbax``) decodes to the mesh of the
+    same weights' ``.pt``; an empty ``decoder.orbax`` names the missing
+    manifest; bad planes are refused; without CUDA the default device
+    raises."""
+    from ishapediting_tpu.io.checkpoint import save_params as jsave_params
+
     src = str(tmp_path / "p.npy")
     np.save(src, planes_in_layout("nchw"))
-    orbax_dir = tmp_path / "decoder.orbax"
-    orbax_dir.mkdir()
-    with pytest.raises(SystemExit, match="orbax"):
-        decode_main(["--input", src, "--output", str(tmp_path / "o.obj"), "--model_path", str(orbax_dir),
+    jdec, _ = decoder_pair(8, seed=6)  # decoder_pt's weights
+    jsave_params(str(tmp_path / "decoder.orbax"), jdec)
+    meshes = {}
+    for name, flags in (("pt", ["--model_path", decoder_pt]),
+                        ("orbax", ["--model_path", str(tmp_path / "decoder.orbax")]),
+                        ("dir", ["--model_dir", str(tmp_path)])):
+        out = tmp_path / f"{name}.obj"
+        decode_main(["--input", src, "--output", str(out), "--res", "20", "--device", "cpu"] + flags)
+        meshes[name] = out.read_bytes()
+    assert meshes["orbax"] == meshes["pt"] and meshes["dir"] == meshes["pt"]
+    empty = tmp_path / "empty" / "decoder.orbax"
+    empty.mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match="manifest.ocdbt"):
+        decode_main(["--input", src, "--output", str(tmp_path / "o.obj"), "--model_path", str(empty),
                      "--device", "cpu"])
-    with pytest.raises(SystemExit, match="orbax"):
-        decode_main(["--input", src, "--output", str(tmp_path / "o.obj"), "--model_dir", str(tmp_path),
+    with pytest.raises(FileNotFoundError, match="manifest.ocdbt"):
+        decode_main(["--input", src, "--output", str(tmp_path / "o.obj"), "--model_dir", str(empty.parent),
                      "--device", "cpu"])
     with pytest.raises(SystemExit, match="expected 3 planes"):
         np.save(src, np.zeros((2, 8, 4, 4), np.float32))

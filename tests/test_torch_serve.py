@@ -299,11 +299,11 @@ def scene():
             (v, t, (0.9, 0.1, 0.1)), (v, t, (0.1, 0.9, 0.1))]
 
 
-@pytest.mark.parametrize("size,eye,chunk", [((48, 48), (1.8, 1.4, 1.8), None), ((64, 40), (1.8, 1.4, 1.8), 64),
-                                            ((40, 40), (0.2, 0.1, 0.3), None)])
-def test_render_scene_pixel_equal_to_jax(monkeypatch, size, eye, chunk):
-    if chunk is not None:
-        monkeypatch.setattr(trender, "CHUNK_PIXELS", chunk)
+@pytest.mark.parametrize("size,eye", [((48, 48), (1.8, 1.4, 1.8)), ((64, 40), (1.8, 1.4, 1.8)),
+                                      ((40, 40), (0.2, 0.1, 0.3))])
+def test_render_scene_pixel_equal_to_jax(size, eye):
+    """The native z-buffer loop (rows split over threads) against JAX's
+    per-triangle Python loop, pixel for pixel and depth for depth."""
     w, h = size
     want = jrender.render_scene(scene(), width=w, height=h, eye=eye)
     got = trender.render_scene(scene(), width=w, height=h, eye=eye)

@@ -52,14 +52,15 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def jax_masks(rng, batch):
-    """JAX's keep masks of a train forward with ``dropout_rng=rng``: one key
-    per site (``split(rng, n_sites)``), ``bernoulli(key, 1 - p)`` at the
-    ResBlocks."""
-    sites = dropout_sites(UNetConfig(**TINY), batch)
+def jax_masks(rng, batch, cfg=None):
+    """JAX's keep masks of a train forward of ``cfg`` (default ``TINY``)
+    with ``dropout_rng=rng``: one key per site (``split(rng, n_sites)``),
+    ``bernoulli(key, 1 - p)`` at the ResBlocks."""
+    cfg = TINY if cfg is None else cfg
+    sites = dropout_sites(UNetConfig(**cfg), batch)
     keys = jax.random.split(rng, len(sites))
     return [None if s is None else torch.from_numpy(np.asarray(
-        jax.random.bernoulli(k, 1.0 - TINY["dropout"], s))) for k, s in zip(keys, sites)]
+        jax.random.bernoulli(k, 1.0 - cfg["dropout"], s))) for k, s in zip(keys, sites)]
 
 
 @pytest.fixture(scope="module")
@@ -137,7 +138,8 @@ def test_train_step_loss_and_grads_match_jax(tiny_pair):
 def test_optimizer_and_ema_match_optax(clip, scale, wd):
     """``make_optimizer`` + ``update_ema`` against the JAX trainer's
     ``make_optimizer`` (optax clip + adamw) and ``update_ema`` on identical
-    gradients over 3 steps: parameters and EMA at 1e-6 relative."""
+    gradients over 3 steps, each clipped by its global norm: parameters and
+    EMA at 1e-6 relative."""
     rng = np.random.default_rng(5)
     shapes = {"a": (4, 3), "b": (5,)}
     params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
@@ -155,7 +157,8 @@ def test_optimizer_and_ema_match_optax(clip, scale, wd):
         jema = j_update_ema(jema, jp, 0.9)
         for k, p in tp.items():
             p.grad = torch.tensor(g[k])
-        topt.step()
+        # the train step hands the optimizer the whole gradient's global norm
+        topt.step(norm=torch.linalg.vector_norm(torch.cat([p.grad.flatten() for p in tp.values()])))
         update_ema(tema.values(), tp.values(), 0.9)
     if clip:
         norm = np.sqrt(sum(np.square(g[k]).sum() for g in grads[-1:] for k in g))
@@ -344,7 +347,8 @@ def _decoder_pt(path, plane_channels):
 def test_cli_train_export_serves(tmp_path):
     """``cli.train --preset tiny --synthetic 4 --export_model_dir`` -> the
     reference layout -> ``DragEngine.from_model_dir`` samples a finite latent
-    with the exported EMA weights."""
+    with the exported EMA weights; an export whose decoder comes from the
+    JAX package's orbax dir serves that decoder."""
     out, ckpt = tmp_path / "model", tmp_path / "ckpt"
     dec = _decoder_pt(tmp_path / "dec.pt", preset("tiny").plane_channels)
     state = tcli.main(["--preset", "tiny", "--synthetic", "4", "--steps", "3", "--ckpt_every", "2",
@@ -357,9 +361,15 @@ def test_cli_train_export_serves(tmp_path):
         assert torch.equal(v, state.ema_params[k]), k
     lat = engine.sample_latent(seed=0)
     assert lat.shape == (1,) + preset("tiny").latent_shape and np.isfinite(lat).all()
-    with pytest.raises(SystemExit, match="orbax"):
-        tcli.export_model_dir(str(tmp_path / "m2"), state.ema_params, 3, "tiny",
-                              decoder_from=str(tmp_path), channels=6, plane_channels=2)
+    from ishapediting_tpu.io.checkpoint import save_params as jsave_params
+
+    jdec, tdec = decoder_pair(preset("tiny").plane_channels, seed=4)
+    jsave_params(str(tmp_path / "decoder.orbax"), jdec)  # --decoder_from the JAX package's orbax dir
+    tcli.export_model_dir(str(tmp_path / "m2"), state.ema_params, 3, "tiny",
+                          decoder_from=str(tmp_path / "decoder.orbax"), channels=6, plane_channels=2)
+    served = DragEngine.from_model_dir(str(tmp_path / "m2"), config=preset("tiny"), device="cpu")
+    for k, v in tdec.state_dict().items():
+        assert torch.equal(served.decoder.state_dict()[k], v), k
 
 
 @pytest.mark.parametrize("source", ["pt", "model_dir"])

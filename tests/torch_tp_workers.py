@@ -1,7 +1,8 @@
 """Rank functions of ``tests/test_torch_tensor_parallel.py``: the model axis
 (``make_mesh(model_parallel=2)``, ``shard_params_tp``, the cut UNet's
 forward and guidance gradient, the drag, DDIM and the decode over a 2-D
-mesh) and ``cli.serve`` over ranks. Ranks are started by
+mesh, the cut train step with its checkpoints, loop and export) and
+``cli.serve`` over ranks. Ranks are started by
 ``torch_parallel_workers.run_rank`` with ``TASKS`` of this module; like it,
 this module imports torch and the port only, never JAX."""
 
@@ -195,5 +196,118 @@ def serve(rank, inputs, out_dir):
     return out.getvalue()
 
 
+def train_tensors(state, gather):
+    """The parameters, EMA and Adam moments of a train state by name
+    (``p.``, ``ema.``, ``exp_avg.``, ``exp_avg_sq.``): gathered whole, or
+    this rank's slices."""
+    from ishapediting_tpu_torch.io.checkpoint import MOMENTS, _opt_names, whole_state
+
+    if gather:
+        blob = whole_state(state)
+        params, ema, opt = blob["params"], blob["ema_params"], blob["optimizer"]["state"]
+    else:
+        params = {k: p.detach() for k, p in state.model.named_parameters()}
+        ema, opt = state.ema_params, state.optimizer.state_dict()["state"]
+    out = {f"p.{k}": v for k, v in params.items()}
+    out.update({f"ema.{k}": v for k, v in ema.items()})
+    for i, name in enumerate(_opt_names(state)):
+        out.update({f"{m}.{name}": opt[i][m] for m in MOMENTS})
+    return {k: v.detach().clone().numpy() for k, v in out.items()}
+
+
+def _cut_state(cfg, state, mesh, grad_clip):
+    from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer
+
+    model = ptensor.shard_params_tp(_unet(cfg, state), mesh)
+    return init_train_state(model, make_optimizer(model.parameters(), 1e-4, grad_clip=grad_clip))
+
+
+def _train_batches(shape, seed, skip=0):
+    """The loop's global batches, the first ``skip`` left out (a resumed
+    run's iterator starts where the interrupted one stopped)."""
+    rng = np.random.default_rng(seed)
+    for i in range(10**6):
+        batch = np.clip(rng.standard_normal(shape), -1, 1).astype(np.float32)
+        if i >= skip:
+            yield batch
+
+
+def train_tp(rank, inputs, out_dir):
+    """The train step cut over model 2 (with 4 ranks on data 2 x model 2),
+    global batch 4. On the JAX comparison's UNet: (jax) one step with the
+    injected draws and JAX's optimizer (grad_clip 1.0), its metrics and
+    state gathered; (clip) one step with the clip at half the one-rank
+    norm, its clipped gradients gathered, then a second step from a
+    generator and this rank's slices. On the small UNet: (loop)
+    ``train(mesh=)`` for 2 steps, and for 1 step resumed to 2 from its cut
+    checkpoint; (nan) a step whose loss is NaN on the last rank alone;
+    (load) a one-rank checkpoint loaded cut; (export) the EMA exported as a
+    model dir."""
+    from ishapediting_tpu_torch.cli.train import export_model_dir
+    from ishapediting_tpu_torch.io.checkpoint import load_train_state
+    from ishapediting_tpu_torch.train.loop import train
+    from ishapediting_tpu_torch.train.trainer import make_train_step
+
+    tr = inputs["train"]
+    mesh = pmesh.make_mesh(model_parallel=2, device="cpu")
+    cfg, sched = UNetConfig(**tr["cfg"]), make_schedule(*tr["sched"])
+    step = make_train_step(cfg, sched, mesh=mesh)
+    draws = dict(t=torch.from_numpy(tr["t"]).long(), noise=torch.from_numpy(tr["noise"]), dropout_masks=tr["masks"])
+    out = dict(shape=mesh.shape, data_index=mesh.data_index, model_index=mesh.model_index)
+
+    state = _cut_state(tr["cfg"], tr["state"], mesh, 1.0)
+    out["jax_metrics"] = step(state, tr["batch"], **draws)
+    out["jax_state"] = train_tensors(state, gather=True)  # gathered tensors are the same on every rank
+
+    state = _cut_state(tr["cfg"], tr["state"], mesh, tr["clip"])
+    out["clip_metrics"] = step(state, tr["batch"], **draws)
+    grads = ptensor.gather_named(state.model, {k: p.grad for k, p in state.model.named_parameters()})
+    out["clip_grads"] = {k: v.numpy().copy() for k, v in grads.items()}
+    out["step2_metrics"] = step(state, tr["batch"], torch.Generator().manual_seed(tr["seed"]))
+    out["slices"] = train_tensors(state, gather=False)
+    out["cut_dims"] = ptensor.cut_dims(state.model)
+
+    small = UNetConfig(**tr["small_cfg"])
+    shape = (4, small.image_size, small.image_size, small.in_channels)
+    kw = dict(log_every=100, grad_clip=1.0, seed=tr["seed"], mesh=mesh)
+    runs = {}
+    for name, legs in (("straight", (2,)), ("resumed", (1, 2))):
+        ckpt = os.path.join(out_dir, f"loop_{name}") if name == "resumed" else None
+        for done, total in zip((0,) + legs, legs):
+            model = ptensor.shard_params_tp(_unet(tr["small_cfg"], tr["small_state"]), mesh)
+            state = train(small, sched, model, _train_batches(shape, tr["seed"], skip=done), total_steps=total,
+                          ckpt_dir=ckpt, ckpt_every=1, **kw)
+        runs[name], runs[f"{name}_step"] = train_tensors(state, gather=True), state.step
+    out["loop"], out["small_cut_dims"] = runs, ptensor.cut_dims(state.model)
+
+    last = mesh.n_ranks - 1  # its output, so its loss alone, made NaN
+    hook = state.model.register_forward_hook(
+        lambda mod, args, y: (y[0] * float("nan"), y[1]) if mesh.rank == last else y)
+    before, step_before = train_tensors(state, gather=False), state.step
+    out["nan_metrics"] = make_train_step(small, sched, mesh=mesh)(state, next(_train_batches(shape, 0)),
+                                                                   torch.Generator().manual_seed(0))
+    hook.remove()
+    after = train_tensors(state, gather=False)
+    out["nan_unchanged"] = state.step == step_before and all(np.array_equal(before[k], after[k]) for k in before)
+
+    export = os.path.join(out_dir, "export")
+    dec = os.path.join(out_dir, "dec.pt")
+    if rank == 0:
+        torch.save(tr["decoder"], dec)
+    pmesh.barrier()
+    export_model_dir(export, state.ema_params, state.step, "tp", decoder_from=dec, channels=6, plane_channels=2,
+                     model=state.model, mesh=mesh)
+    out["export_dir"] = export
+    out["ema_whole"] = {k: v.numpy().copy() for k, v in ptensor.gather_named(state.model, state.ema_params).items()}
+
+    loaded = _cut_state(tr["small_cfg"], tr["small_state"], mesh, 1.0)
+    load_train_state(tr["whole_ckpt"], loaded)
+    out["loaded_slices"], out["loaded_step"] = train_tensors(loaded, gather=False), loaded.step
+    if rank:  # the whole tensors are rank 0's to report
+        for k in ("jax_state", "clip_grads", "loop", "ema_whole"):
+            out[k] = None
+    return out
+
+
 TASKS = dict(mesh_layout=mesh_layout, forward=forward, drag=drag, sample_edit_2d=sample_edit_2d, decode_2d=decode_2d,
-             serve=serve)
+             serve=serve, train_tp=train_tp)
