@@ -77,12 +77,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel (1e-4); remat against no remat on the card with generator-drawn
    masks (1e-5); ``train_decoder`` at the published decoder widths on a
    sphere (held-out accuracy > 0.9); ``cli.train`` at the published chairs
-   width, batch 8 (4 steps, a checkpoint, the checkpoint held to the state,
-   a resume to step 6, ``--export_model_dir`` with the trained decoder),
-   the export served by ``DragEngine.from_model_dir`` (a 20-step
-   ``update_latent_params``); a bf16 miniature overfitting 4 latents in 30
-   steps; train s/step (first and steady), peak memory, checkpoint bytes
-   and save/load seconds and decoder s/step printed; every train step
+   width, batch 8 (4 steps, a checkpoint written as the JAX package's orbax
+   train state, timed beside one ``torch.save`` of the same tensors, the
+   checkpoint held to the state, a resume to step 6 from it,
+   ``--export_model_dir`` with the trained decoder: ``unet.orbax``,
+   ``decoder.orbax``), the export served by ``DragEngine.from_model_dir``
+   (DDIM-10 at batch 2 from a fixed x_T bit-equal to the in-memory EMA
+   UNet's, a 20-step ``update_latent_params``); a bf16 miniature
+   overfitting 4 latents in 30 steps; train s/step (first and steady),
+   peak memory, checkpoint bytes, write and read seconds and MB/s, and
+   decoder s/step printed; every train step
    launches the forward's kernels and, under remat, every block's again
    (141/141/32 per chairs step, exact);
 8. the remaining CLIs and host modules on the chairs engine of phase 4
@@ -93,7 +97,8 @@ Phases, each fatal on failure (exit code 1, no result line):
    mode on phase 4's ``cli.edit`` meshes, original and edited (chamfer,
    hausdorff, IoU, local IoU around the handle of its EditLog);
    ``solver_mesh_sweep`` on the chairs UNet with the base chain cut to 50
-   for time (budget 10, one seed: 120 forwards, four 256^3 meshes) and ``cli.eval
+   for time (budget 10, one seed: 120 forwards, four 256^3 meshes; the
+   ancestral chain's JAX draws timed on the host) and ``cli.eval
    --solver_sweep --random_init --preset tiny`` (the generic kernel); the
    GUI (``gui/app.py``) on the headless Open3D backend over a
    ``DragEngine`` of phase 7's exported model dir (or one written with
@@ -148,7 +153,8 @@ Phases, each fatal on failure (exit code 1, no result line):
     moments, peak GiB, first and steady s/step and gloo seconds printed;
     then the fp32 miniature's train step cut against whole (loss,
     ``grad_norm``, parameters after the step, 1e-4) and a checkpoint saved
-    cut and loaded whole (bit-equal); each rank's launches exact and added
+    cut (orbax, written by the first rank) and loaded whole (parameters,
+    EMA, Adam moments and step bit-equal); each rank's launches exact and added
     to the totals;
 11. the JAX package's orbax checkpoints (``tests/assets/orbax``, written by
     ``tests/assets/make_orbax_assets.py``; the card's machine has no JAX,
@@ -1642,14 +1648,19 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
     """``cli.train`` at the published chairs width (421M parameters, bf16
     torso, dropout 0.1, the 1000-step chain, AdamW lr 1e-4, clip 1.0, EMA
     0.9999, remat), batch 8 of synthetic 128x128x96 latents: 4 steps with a
-    checkpoint at step 4, the checkpoint loaded and held to the state the
-    run returned, a resume to step 6 with the export of a model dir, and that
-    dir served by ``DragEngine.from_model_dir`` (a 20-step
-    ``update_latent_params`` with a 64^3 mesh). Launches exact per step."""
+    checkpoint at step 4 (the JAX package's orbax train state, timed beside
+    one ``torch.save`` of the same tensors), the checkpoint loaded and held
+    to the state the run returned, a resume to step 6 from it with the
+    export of a model dir (``unet.orbax``, ``decoder.orbax``), and that dir
+    served by ``DragEngine.from_model_dir``: DDIM-10 at batch 2 from a fixed
+    x_T equal to the in-memory EMA UNet's bit for bit, and a 20-step
+    ``update_latent_params`` with a 64^3 mesh. Launches exact per step."""
     from ishapediting_tpu_torch.cli.train import main as train_main
     from ishapediting_tpu_torch.config import preset
+    from ishapediting_tpu_torch.core.diffusion import ddim_sample_loop
+    from ishapediting_tpu_torch.core.schedule import make_schedule
     from ishapediting_tpu_torch.edit.engine import DragEngine
-    from ishapediting_tpu_torch.io.checkpoint import load_train_state
+    from ishapediting_tpu_torch.io.checkpoint import load_train_state, whole_state
     from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
     from ishapediting_tpu_torch.train.loop import latest_checkpoint
     from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer
@@ -1693,11 +1704,23 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
     if state.step != 4 or not np.isfinite(loss0) or latest_checkpoint(ckpt) != os.path.join(ckpt, "step_4"):
         fail(f"cli.train: step {state.step}, loss {loss0}, checkpoints {os.listdir(ckpt)}")
     nbytes, save_s = parse_ckpt(log, "step_4")
+    if not os.path.exists(os.path.join(ckpt, "step_4", "manifest.ocdbt")):
+        fail(f"cli.train: step_4 is not an orbax checkpoint: {sorted(os.listdir(os.path.join(ckpt, 'step_4')))}")
     out.update(first_step_s=gaps[0], steady_s=gaps[1:], run_wall_s=wall, peak_gib=peak,
                ckpt_bytes=nbytes, save_s=[save_s], loss_step0=loss0)
     say(f"  cli.train: 4 steps at batch 8, step 0 loss {loss0:.4f}; step s {[round(g, 3) for g in gaps]} "
         f"(first: cuDNN times the new shapes), peak device memory {peak:.2f} GiB; checkpoint step_4 "
-        f"{nbytes / 1e9:.3f} GB saved in {save_s:.2f} s; wall {wall:.1f} s")
+        f"(orbax) {nbytes / 1e9:.3f} GB written in {save_s:.2f} s ({nbytes / save_s / 1e6:.0f} MB/s); "
+        f"wall {wall:.1f} s")
+    pt = os.path.join(WORK, "train_state_compare.pt")
+    sync()
+    t0 = time.perf_counter()
+    torch.save(whole_state(state), pt)
+    pt_s = time.perf_counter() - t0
+    out.update(torch_save_bytes=os.path.getsize(pt), torch_save_s=pt_s)
+    os.remove(pt)
+    say(f"  for comparison only: torch.save of the same state {out['torch_save_bytes'] / 1e9:.3f} GB in "
+        f"{pt_s:.2f} s ({out['torch_save_bytes'] / pt_s / 1e6:.0f} MB/s)")
 
     with torch.device(device):
         fresh = UNetModel(chairs.unet)
@@ -1712,8 +1735,8 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
             and all(torch.equal(state.ema_params[k], v) for k, v in restored.ema_params.items())
             and all(saved_opt[i][k].device == got_opt[i][k].device and torch.equal(saved_opt[i][k], got_opt[i][k])
                     for i in saved_opt for k in saved_opt[i]))
-    say(f"  load_train_state(step_4): {load_s:.2f} s; params, EMA, Adam moments and step equal the "
-        f"saved state: {same}")
+    say(f"  load_train_state(step_4): {load_s:.2f} s ({nbytes / load_s / 1e6:.0f} MB/s, read, mapped to the "
+        f"port's layout and placed on the card); params, EMA, Adam moments and step equal the saved state: {same}")
     if not same:
         fail("the loaded checkpoint differs from the state that was saved")
     out["load_s"] = [load_s]
@@ -1734,12 +1757,40 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
 
     cfg = dataclasses.replace(chairs.with_steps(20), edit=dataclasses.replace(
         chairs.edit, w_time=min(chairs.edit.w_time, 10), shape_resolution=64))
+    if sorted(os.listdir(export)) != ["decoder.orbax", "statistics", "unet.orbax"]:
+        fail(f"cli.train --export_model_dir wrote {sorted(os.listdir(export))}")
     t0 = time.perf_counter()
     engine = DragEngine.from_model_dir(export, config=cfg, device=device)
     load_s = time.perf_counter() - t0
     if not all(torch.equal(v, state.ema_params[k]) for k, v in engine.unet.state_dict().items()):
         fail("the served UNet's weights are not the trained EMA")
+    with torch.device(device):
+        in_memory = UNetModel(chairs.unet)
+    in_memory.load_state_dict(state.ema_params)
+    memory_engine = DragEngine(cfg, unet=in_memory, decoder=engine.decoder, stats=engine.stats, device=device)
     del state
+    sched10 = make_schedule(1000, "linear", "ddim10").to(device)
+    x_T = torch.randn((2,) + tuple(chairs.latent_shape), generator=torch.Generator(device=device).manual_seed(7),
+                      device=device)
+    per_fwd = kernel_calls_per_forward(cfg.unet)
+    ddim, eps = {}, {}
+    t999 = torch.full((2,), 999, dtype=torch.long, device=device)
+    for label, eng in (("served", engine), ("in-memory", memory_engine)):
+        with torch.no_grad():
+            ddim[label], wall, _ = counted(hk, counter, per_fwd, totals, f"DDIM-10 of the {label} EMA UNet",
+                                           lambda e=eng: ddim_sample_loop(sched10, e.model_fn(), x_T,
+                                                                          clip_denoised=cfg.diffusion.clip_denoised),
+                                           10)
+            eps[label], _, _ = counted(hk, counter, per_fwd, totals, f"a forward of the {label} EMA UNet",
+                                       lambda e=eng: e.model_fn()(x_T, t999)[0], 1)
+    same = (torch.equal(ddim["served"], ddim["in-memory"]) and torch.equal(eps["served"], eps["in-memory"])
+            and bool(ddim["served"].isfinite().all()))
+    say(f"  train -> serve: DDIM-10 at batch 2 from a fixed x_T and one forward at t 999, the served orbax export "
+        f"against the in-memory EMA UNet: bit-equal {same} (max |x_0| {float(ddim['served'].abs().max()):.4f}, "
+        f"max |output| {float(eps['served'].abs().max()):.3g})")
+    if not same:
+        fail("the served export's DDIM-10 or forward differs from the in-memory EMA UNet's")
+    del memory_engine, in_memory, ddim, eps
     lat, wall, _ = counted(hk, counter, kernel_calls_per_forward(cfg.unet), totals,
                            "served update_latent_params", lambda: engine.update_latent_params(seed=0), 20)
     check_mesh("served update_latent_params", engine.mesh0, engine.last_mesh_walls)
@@ -1825,7 +1876,8 @@ def training_runs(hk, counter, totals, card, device="cuda", preset_name="chairs"
     say(f"  training on {card}: {preset_name} train step at batch 8 {c['first_step_s']:.2f} s first, "
         f"{steady:.3f} s steady ({8 / steady:.2f} samples/s), peak device memory {c['peak_gib']:.2f} GiB "
         f"with cuDNN's algorithm search, {c['resumed_peak_gib']:.2f} GiB in the resumed run, "
-        f"checkpoint {c['ckpt_bytes'] / 1e9:.3f} GB saved in {c['save_s']} s, loaded in {c['load_s']} s; "
+        f"checkpoint (orbax) {c['ckpt_bytes'] / 1e9:.3f} GB saved in {c['save_s']} s, loaded in {c['load_s']} s "
+        f"(torch.save of the same state {c['torch_save_s']:.2f} s); "
         f"decoder {out['decoder']['s_per_step'] * 1e3:.2f} ms/step")
     return out
 
@@ -2041,6 +2093,7 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     from ishapediting_tpu_torch.core.solver_eval import solver_mesh_sweep
     from ishapediting_tpu_torch.edit.engine import DragEngine
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+    from ishapediting_tpu_torch.utils import threefry
 
     cfg = engine.config
     cfg = dataclasses.replace(cfg, diffusion=dataclasses.replace(cfg.diffusion, base_steps=SWEEP_BASE_STEPS),
@@ -2057,10 +2110,25 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
         return m
 
     sweep_engine.get_mesh = timed_mesh
-    report, wall, _ = counted(hk, counter, per_fwd, totals, "solver sweep (chairs)",
-                              lambda: solver_mesh_sweep(sweep_engine, n_seeds=1, budgets=(10,), max_attempts=1),
-                              2 * SWEEP_BASE_STEPS + 20)
-    out = {"chairs_sweep_wall_s": wall, "chairs_sweep_mesh_s": walls, "chairs_sweep": report}
+    draws, normal = [], threefry.normal
+
+    def timed_normal(key, shape):  # x_T and the ancestral chain's step noise, JAX's draws on the host
+        t0 = time.perf_counter()
+        z = normal(key, shape)
+        draws.append(time.perf_counter() - t0)
+        return z
+
+    threefry.normal = timed_normal
+    try:
+        report, wall, _ = counted(hk, counter, per_fwd, totals, "solver sweep (chairs)",
+                                  lambda: solver_mesh_sweep(sweep_engine, n_seeds=1, budgets=(10,), max_attempts=1),
+                                  2 * SWEEP_BASE_STEPS + 20)
+    finally:
+        threefry.normal = normal
+    out = {"chairs_sweep_wall_s": wall, "chairs_sweep_mesh_s": walls, "chairs_sweep": report,
+           "chairs_sweep_draws": len(draws), "chairs_sweep_draw_s": sum(draws)}
+    say(f"  solver sweep (chairs): {len(draws)} threefry normal draws of {(1,) + tuple(cfg.latent_shape)} on the host "
+        f"(x_T and the ancestral chain's step noise) took {sum(draws):.2f} s of the sweep's {wall:.1f} s")
     ok = (report["seeds"] == 1 and all(report[k]["empty"] == 0 and np.isfinite(report[k]["cd_mean"])
                                        for k in (f"ddpm{SWEEP_BASE_STEPS}", "ddim10", "dpm10")))
     say(f"  solver sweep (chairs): {json.dumps(report)}; mesh walls {[round(w, 2) for w in walls]} s, "
@@ -2107,7 +2175,7 @@ class _SyncThread:
 def gui_runs(hk, counter, totals, engine, per_fwd, dec_pt, device="cuda") -> dict:
     """The GUI over ``DragEngine`` on the headless Open3D backend, on the
     card: select a model (phase 7's exported one, else random weights
-    written here in the reference's layout), create a mesh (20 steps, w_time
+    written here as ``cli.train --export_model_dir`` writes one), create a mesh (20 steps, w_time
     10, the seed 0), pick a source and a target by clicks on the rendered
     depth, drag (2 guided steps: forward through the kernels, backward
     through their autograd Functions), save the mesh with its EditLog and
@@ -2127,9 +2195,8 @@ def gui_runs(hk, counter, totals, engine, per_fwd, dec_pt, device="cuda") -> dic
     gui_app.threading = types.SimpleNamespace(Thread=_SyncThread)  # this module's workers only
     if not os.path.isdir(KEPT_MODELS):
         os.makedirs(KEPT_MODELS)
-        export_model_dir(os.path.join(KEPT_MODELS, "chairs_random"), engine.unet.state_dict(), 0, "chairs",
-                         decoder_from=dec_pt, channels=engine.config.latent_shape[-1],
-                         plane_channels=engine.config.plane_channels)
+        export_model_dir(os.path.join(KEPT_MODELS, "chairs_random"), engine.unet.state_dict(), decoder_from=dec_pt,
+                         channels=engine.config.latent_shape[-1])
     (name,) = os.listdir(KEPT_MODELS)
     app = gui_app.App(models_root=KEPT_MODELS, device=device, config=engine.config)
     out = {}
@@ -2771,8 +2838,7 @@ def signal_reference(totals, device="cuda", train=True) -> dict:
     shutil.rmtree(SIGNAL_DIR, ignore_errors=True)
     dec_pt = os.path.join(WORK, "signal_decoder.pt")
     torch.save(one.decoder.state_dict(), dec_pt)
-    export_model_dir(SIGNAL_DIR, one.unet.state_dict(), 0, "chairs", decoder_from=dec_pt,
-                     channels=chairs.latent_shape[-1], plane_channels=chairs.plane_channels)
+    export_model_dir(SIGNAL_DIR, one.unet.state_dict(), decoder_from=dec_pt, channels=chairs.latent_shape[-1])
     os.remove(dec_pt)
     out = dict(forward=forward.float().cpu().numpy(), ddim=ddim)
     model = one.unet
@@ -2990,7 +3056,7 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     # (e) the chairs UNet cut over the model axis trains: two steps on the reference's draws
     from ishapediting_tpu_torch.config import UNetConfig
     from ishapediting_tpu_torch.core.schedule import make_schedule
-    from ishapediting_tpu_torch.io.checkpoint import load_train_state, save_train_state
+    from ishapediting_tpu_torch.io.checkpoint import load_train_state, save_train_state, whole_state
     from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer, make_train_step
 
     ucfg = dataclasses.replace(chairs.unet, dropout=TRAIN_TP_DROPOUT)
@@ -3027,13 +3093,21 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     tensors["mini_train_cut"] = {k: v.detach().cpu() for k, v in cut_params.items()}
     tensors["mini_train_whole"] = {k: v.detach().cpu() for k, v in states["whole"].model.named_parameters()}
     ckpt = os.path.join(work, "mini_cut_ckpt")
-    save_train_state(ckpt, states["cut"], mesh)
+    t0 = time.perf_counter()
+    nbytes = save_train_state(ckpt, states["cut"], mesh)  # orbax, written by the mesh's first rank
+    save_s = time.perf_counter() - t0
+    saved = whole_state(states["cut"])
     fresh = mini_tp_model().to(dev)
-    load_train_state(ckpt, init_train_state(fresh, make_optimizer(fresh.parameters(), 1e-4, grad_clip=1.0)))
-    res["mini_ckpt_equal"] = all(torch.equal(p.detach().cpu(), tensors["mini_train_cut"][k])
-                                 for k, p in fresh.named_parameters())
+    loaded = load_train_state(ckpt, init_train_state(fresh, make_optimizer(fresh.parameters(), 1e-4, grad_clip=1.0)))
+    got = whole_state(loaded)
+    res["mini_ckpt_equal"] = (os.path.exists(os.path.join(ckpt, "manifest.ocdbt")) and got["step"] == saved["step"] == 1
+                              and all(torch.equal(got[f][k], saved[f][k]) for f in ("params", "ema_params")
+                                      for k in saved[f])
+                              and all(torch.equal(got["optimizer"]["state"][i][m], v)
+                                      for i, st in saved["optimizer"]["state"].items() for m, v in st.items()))
     tag(f"fp32 miniature train step cut / whole: loss {res['mini_train_cut']['loss']:.6g} / "
-        f"{res['mini_train_whole']['loss']:.6g}; cut checkpoint loaded whole, bit-equal: {res['mini_ckpt_equal']}")
+        f"{res['mini_train_whole']['loss']:.6g}; cut checkpoint (orbax, {nbytes} bytes, {save_s:.2f} s) loaded "
+        f"whole, params, EMA, Adam moments and step bit-equal: {res['mini_ckpt_equal']}")
     del states, fresh
 
     res["totals"] = totals

@@ -8,8 +8,9 @@ triplane ``.npy`` files, with checkpoint/resume, on the card unless
 
 Use ``--synthetic N`` (N random latents, the JAX package's NumPy stream) for
 a run without assets, and ``--preset tiny --device cpu`` on the CPU.
-``--export_model_dir`` then writes a category directory in the reference's
-layout that ``DragEngine.from_model_dir`` loads: train -> serve.
+``--export_model_dir`` then writes a category directory as the JAX
+package's does (``unet.orbax``, ``decoder.orbax``, ``statistics/``), which
+either package's ``DragEngine.from_model_dir`` loads: train -> serve.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train on N synthetic latents (smoke testing)")
     p.add_argument("--preset", type=str, default="chairs")
     p.add_argument("--init_from", type=str, default=None,
-                   help="torch ema .pt or category dir to fine-tune from")
+                   help="torch ema .pt, category dir or unet.orbax dir to fine-tune from")
     p.add_argument("--ckpt_dir", type=str, default="runs/default")
     p.add_argument("--steps", type=int, default=10_000)
     p.add_argument("--ckpt_every", type=int, default=1000)
@@ -39,12 +40,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ema_rate", type=float, default=0.9999)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--export_model_dir", type=str, default=None,
-                   help="after training, write a servable category dir (ddpm_<preset>_ckpts/"
-                        "ema_<step>.pt, <preset>_decoder.pt, statistics/) that "
-                        "DragEngine.from_model_dir loads")
+                   help="after training, write a serveable category dir "
+                        "(unet.orbax EMA + decoder.orbax + statistics) that "
+                        "DragEngine.from_model_dir loads directly")
     p.add_argument("--decoder_from", type=str, default=None,
-                   help="decoder for --export_model_dir: a .pt (reference MultiTriplane.net "
-                        "state_dict) or the JAX package's decoder.orbax dir")
+                   help="decoder for --export_model_dir: an orbax dir or a "
+                        "torch .pt")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -89,13 +90,20 @@ def main(argv=None):
         model = UNetModel(config.unet)
     if args.init_from:
         from ishapediting_tpu_torch.io.convert import load_torch_checkpoint
+        from ishapediting_tpu_torch.io.orbax import load_unet_state_dict
 
         path = args.init_from
-        if os.path.isdir(path):
-            path = discover_model_dir(path).unet_ckpt
-            if path is None:
-                raise SystemExit(f"no ddpm*/ema* checkpoint under {args.init_from}")
-        load_torch_checkpoint(path, model)
+        if os.path.isdir(path):  # an orbax dir, or a model dir (its unet.orbax preferred, as serving does)
+            info = discover_model_dir(path)
+            orbax_dir = path if os.path.exists(os.path.join(path, "manifest.ocdbt")) else info.unet_orbax
+            if orbax_dir:
+                model.load_state_dict(load_unet_state_dict(orbax_dir))
+            elif info.unet_ckpt is None:
+                raise SystemExit(f"no ddpm*/ema* checkpoint or unet.orbax under {args.init_from}")
+            else:
+                load_torch_checkpoint(info.unet_ckpt, model)
+        else:
+            load_torch_checkpoint(path, model)
     else:
         init_unet_(model, torch.Generator(device=dev).manual_seed(args.seed))
 
@@ -107,54 +115,53 @@ def main(argv=None):
     print(f"done at step {state.step}; checkpoints in {args.ckpt_dir}")
 
     if args.export_model_dir:
-        export_model_dir(args.export_model_dir, state.ema_params, state.step, args.preset,
-                         decoder_from=args.decoder_from, stats_dir=args.stats,
-                         channels=channels, plane_channels=config.plane_channels)
+        export_model_dir(args.export_model_dir, state.ema_params, decoder_from=args.decoder_from,
+                         stats_dir=args.stats, channels=channels)
         print(f"exported servable model dir: {args.export_model_dir}")
     return state
 
 
-def export_model_dir(out_dir: str, ema_params, step: int, name: str, decoder_from=None,
-                     stats_dir=None, channels: int = 96, plane_channels: int = 32, model=None,
-                     mesh=None) -> None:
-    """Write a servable category directory in the reference's asset layout
-    (drag_utils.py:213-228): ``ddpm_<name>_ckpts/ema_<step>.pt`` (the EMA
-    UNet state_dict), ``<name>_decoder.pt`` (read from ``decoder_from``, a
-    torch ``.pt`` or the JAX package's orbax directory) and ``statistics/``
-    (copied from ``stats_dir``, or explicit identity bounds when absent).
-    ``DragEngine.from_model_dir`` loads the result. A cut model's EMA
-    (``model`` cut by ``shard_params_tp``) is gathered whole first; over a
-    ``mesh`` every rank calls this, the first writes and the others wait."""
+def export_model_dir(out_dir: str, ema_params, decoder_from=None, stats_dir=None, channels: int = 96,
+                     model=None, mesh=None) -> None:
+    """Write a servable category directory as the JAX package's
+    ``cli/train.py::export_model_dir`` does: ``unet.orbax`` (the EMA
+    weights in JAX's layout), ``decoder.orbax`` (from ``decoder_from``: an
+    orbax dir or a torch ``.pt``) and ``statistics/`` (copied from
+    ``stats_dir``, or explicit identity bounds when absent). Either
+    package's ``DragEngine.from_model_dir`` loads the result. A cut model's
+    EMA (``model`` cut by ``shard_params_tp``) is gathered whole first;
+    over a ``mesh`` every rank calls this, the first writes and the others
+    wait."""
     import torch
 
-    from ishapediting_tpu_torch.io.convert import load_torch_decoder
-    from ishapediting_tpu_torch.ops.triplane import TriplaneDecoder
+    from ishapediting_tpu_torch.io.checkpoint import load_params, save_params
+    from ishapediting_tpu_torch.io.convert import (
+        jax_decoder_from_state_dict,
+        jax_params_from_unet_state_dict,
+        read_pt_state_dict,
+    )
     from ishapediting_tpu_torch.parallel.tensor import gather_named
 
     if model is not None:
         ema_params = gather_named(model, ema_params)
     if mesh is not None and mesh.n_ranks > 1:
         if mesh.rank == 0:
-            export_model_dir(out_dir, ema_params, step, name, decoder_from, stats_dir, channels, plane_channels)
+            export_model_dir(out_dir, ema_params, decoder_from, stats_dir, channels)
         torch.distributed.barrier(group=mesh.mesh_group)
         return
     os.makedirs(out_dir, exist_ok=True)
-    ckpts = os.path.join(out_dir, f"ddpm_{name}_ckpts")
-    os.makedirs(ckpts, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in ema_params.items()},
-               os.path.join(ckpts, f"ema_{step}.pt"))
+    save_params(os.path.join(out_dir, "unet.orbax"), jax_params_from_unet_state_dict(ema_params))
     if decoder_from:
         if os.path.isdir(decoder_from):
-            from ishapediting_tpu_torch.io.orbax import load_decoder
-
-            dec = load_decoder(decoder_from, TriplaneDecoder(plane_channels))
+            dec = load_params(decoder_from)
         else:
-            dec = load_torch_decoder(decoder_from, TriplaneDecoder(plane_channels))
-        torch.save(dec.state_dict(), os.path.join(out_dir, f"{name}_decoder.pt"))
+            dec = jax_decoder_from_state_dict(read_pt_state_dict(decoder_from))
+        save_params(os.path.join(out_dir, "decoder.orbax"), dec)
     else:
         print(
             f"WARNING: no --decoder_from; {out_dir} has no decoder and "
-            "DragEngine.from_model_dir will refuse to load it until a decoder .pt is added"
+            "DragEngine.from_model_dir will refuse to load it until a "
+            "decoder.orbax (or decoder .pt) is added"
         )
     stats_out = os.path.join(out_dir, "statistics")
     if stats_dir:

@@ -15,6 +15,28 @@ import numpy as np
 import torch
 
 
+class StepNoises:
+    """The JAX package's step noise of ``p_sample_loop`` from ``key``
+    (``core/diffusion.py``: ``key, sub = split(key)`` once per step, then
+    ``normal(sub, shape)``), drawn when the loop asks for step ``i``."""
+
+    def __init__(self, key: np.ndarray, steps: int, shape):
+        from ishapediting_tpu_torch.utils.threefry import split
+
+        self.subs, self.shape = [], tuple(shape)
+        for _ in range(steps):
+            key, sub = split(key)
+            self.subs.append(sub)
+
+    def __len__(self) -> int:
+        return len(self.subs)
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        from ishapediting_tpu_torch.utils.threefry import normal
+
+        return normal(self.subs[i], self.shape)
+
+
 @torch.no_grad()
 def solver_mesh_sweep(
     engine,
@@ -41,10 +63,9 @@ def solver_mesh_sweep(
 
     Draw ``s`` takes x_T = ``threefry.normal(prng_key(seed0 + s))``, the
     JAX package's x_T for the same seeds to 2e-5 (or ``x_Ts[s]`` where
-    given). The ancestral chain's step noise comes from a
-    ``torch.Generator`` seeded with ``seed0 + 7919 * (s + 1)``, not from the
-    JAX package's ``run_key`` stream: its ``ddpm`` row differs from a JAX
-    report's, the deterministic solvers' rows do not."""
+    given), and the ancestral chain the JAX package's step noise from
+    ``run_key = prng_key(seed0 + 7919 * (s + 1))`` (``StepNoises``), so
+    every row is the JAX report's."""
     from ishapediting_tpu_torch.core.diffusion import ddim_sample_loop, dpm_solver_sample_loop, p_sample_loop
     from ishapediting_tpu_torch.core.schedule import make_schedule
     from ishapediting_tpu_torch.geometry.metrics import chamfer_distance, iou
@@ -62,7 +83,8 @@ def solver_mesh_sweep(
         ).to(device)
 
     dense = sched("")
-    solvers = {f"ddpm{base}": lambda x, gen: p_sample_loop(dense, mf, x, gen, clip_denoised=clip)}
+    solvers = {f"ddpm{base}": lambda x, key: p_sample_loop(dense, mf, x, noises=StepNoises(key, base, x.shape),
+                                                          clip_denoised=clip)}
     skipped_budgets = []
     for n in budgets:
         if n >= base:  # nothing to respace: the dense chain is this budget
@@ -70,9 +92,9 @@ def solver_mesh_sweep(
             continue
         if base % n == 0:  # ddimN needs an integer stride
             sd = sched(f"ddim{n}")
-            solvers[f"ddim{n}"] = lambda x, gen, s=sd: ddim_sample_loop(s, mf, x, gen, clip_denoised=clip)
+            solvers[f"ddim{n}"] = lambda x, key, s=sd: ddim_sample_loop(s, mf, x, clip_denoised=clip)
         sp = sched(f"dpm{n}")
-        solvers[f"dpm{n}"] = lambda x, gen, s=sp: dpm_solver_sample_loop(s, mf, x, clip_denoised=clip)
+        solvers[f"dpm{n}"] = lambda x, key, s=sp: dpm_solver_sample_loop(s, mf, x, clip_denoised=clip)
 
     per = {name: {"cd": [], "iou": [], "empty": 0} for name in solvers}
     shape = (1,) + tuple(cfg.latent_shape)
@@ -81,7 +103,7 @@ def solver_mesh_sweep(
     while done < n_seeds and s < cap:
         draw = x_Ts[s] if x_Ts is not None else normal(prng_key(seed0 + s), shape)
         x_T = torch.as_tensor(np.asarray(draw, np.float32).reshape(shape), device=device)
-        run_seed = seed0 + 7919 * (s + 1)
+        run_key = prng_key(seed0 + 7919 * (s + 1))
         s += 1
         ref_mesh = engine.get_mesh(ddim_sample_loop(dense, mf, x_T, clip_denoised=clip))
         if len(ref_mesh.triangles) == 0:
@@ -91,7 +113,7 @@ def solver_mesh_sweep(
             continue
         done += 1
         for name, fn in solvers.items():
-            mesh = engine.get_mesh(fn(x_T, torch.Generator(device=device).manual_seed(run_seed)))
+            mesh = engine.get_mesh(fn(x_T, run_key))
             if len(mesh.triangles) == 0:
                 per[name]["empty"] += 1
                 continue

@@ -3,8 +3,9 @@
 The reference ships no trainer (SURVEY.md §2.4); this is the counterpart of
 the JAX package's ``train/loop.py``:
 
-- periodic checkpoints of the full train state (``io/checkpoint.py``,
-  ``step_<N>`` directories) and resume from the newest one,
+- periodic checkpoints of the full train state (``io/checkpoint.py``:
+  ``step_<N>`` directories, each the orbax train state JAX's loop writes,
+  at the steps it writes them) and resume from the newest one,
 - failure detection: a step with a non-finite loss leaves the parameters,
   the EMA, the optimizer's moments and the step count untouched (the step
   checks the loss before the optimizer runs); ``max_bad_steps`` bad steps
@@ -20,7 +21,7 @@ of ``shard_params_tp``-cut ones, or both) every rank takes the same global
 batch and draws, the step keeps this rank's rows, and a checkpoint holds
 whole tensors written by the mesh's first rank: JAX's loop trains sharded
 parameters unchanged and saves them whole. ``latest_checkpoint`` takes the
-newest ``step_<N>`` of either package's format.
+newest ``step_<N>``, whichever package wrote it.
 """
 
 from __future__ import annotations

@@ -9,6 +9,7 @@ JAX package's renderer; and import hygiene."""
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -58,7 +59,9 @@ class _SyncThread:
 
 @pytest.fixture
 def sync_threads(monkeypatch):
-    monkeypatch.setattr(gui_app.threading, "Thread", _SyncThread)
+    """The App's worker threads run synchronously; other modules' threads
+    (the orbax reader's and writer's pools) stay threads."""
+    monkeypatch.setattr(gui_app, "threading", types.SimpleNamespace(Thread=_SyncThread))
 
 
 @pytest.fixture
@@ -75,8 +78,8 @@ def tri_mesh():
 
 
 def tiny_model_dir(root):
-    """A random tiny model in the reference's layout (ddpm_*_ckpts/ema_*.pt,
-    *_decoder.pt, statistics/)."""
+    """A random tiny model dir as ``cli.train --export_model_dir`` writes
+    one (unet.orbax, decoder.orbax, statistics/)."""
     from ishapediting_tpu_torch.cli.train import export_model_dir
 
     cfg = preset("tiny")
@@ -84,8 +87,7 @@ def tiny_model_dir(root):
     os.makedirs(root, exist_ok=True)
     dec_pt = os.path.join(root, "..", "dec.pt")
     torch.save(engine.decoder.state_dict(), dec_pt)
-    export_model_dir(root, engine.unet.state_dict(), 1, "tiny", decoder_from=dec_pt,
-                     channels=cfg.latent_shape[-1], plane_channels=cfg.plane_channels)
+    export_model_dir(root, engine.unet.state_dict(), decoder_from=dec_pt, channels=cfg.latent_shape[-1])
     return engine
 
 

@@ -403,12 +403,12 @@ def test_cli_decode_reads_an_orbax_decoder(tmp_path):
 
 def test_cli_train_decoder_from_orbax(tmp_path):
     """``cli.train --export_model_dir --decoder_from <decoder.orbax>``
-    exports the JAX decoder as the port's ``.pt``; the dir serves it."""
+    exports the JAX decoder as ``decoder.orbax``; the dir serves it."""
     out = tmp_path / "exported"
     tcli.main(["--preset", "tiny", "--synthetic", "2", "--steps", "1", "--batch_size", "2", "--ckpt_dir",
                str(tmp_path / "ck"), "--export_model_dir", str(out), "--decoder_from",
                os.path.join(MODEL, "decoder.orbax"), "--device", "cpu"])
-    assert sorted(os.listdir(out)) == ["ddpm_tiny_ckpts", "statistics", "tiny_decoder.pt"]
+    assert sorted(os.listdir(out)) == ["decoder.orbax", "statistics", "unet.orbax"]
     eng = DragEngine.from_model_dir(str(out), config=CFG, device="cpu")
     want = decoder_state_dict_from_jax(j_load_params(os.path.join(MODEL, "decoder.orbax")))
     for k, v in eng.decoder.state_dict().items():

@@ -55,7 +55,7 @@ from ishapediting_tpu_torch.cli.serve import EditServer, serve_loop
 from ishapediting_tpu_torch.config import UNetConfig, preset
 from ishapediting_tpu_torch.core.schedule import make_schedule
 from ishapediting_tpu_torch.edit.engine import DragEngine
-from ishapediting_tpu_torch.io.checkpoint import STATE_FILE, load_train_state, save_train_state
+from ishapediting_tpu_torch.io.checkpoint import load_params, load_train_state, save_train_state
 from ishapediting_tpu_torch.io.convert import unet_state_dict_from_jax
 from ishapediting_tpu_torch.models.unet import UNetModel
 from ishapediting_tpu_torch.ops import triplane as ttri
@@ -513,16 +513,16 @@ def test_cut_train_nan_guard_stops_every_rank(setup, ranks):
 
 
 def whole_blob(path):
-    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+    return load_params(str(path))
 
 
-def blob_layout(blob):
-    """Keys and shapes of a checkpoint file's tensors."""
-    opt = blob["optimizer"]
-    return (sorted((k, tuple(v.shape)) for k, v in blob["params"].items()),
-            sorted((k, tuple(v.shape)) for k, v in blob["ema_params"].items()),
-            sorted((i, m, tuple(v.shape)) for i, s in opt["state"].items() for m, v in s.items()),
-            opt["param_groups"])
+def blob_layout(tree, where=""):
+    """Key paths, dtypes and shapes of an orbax checkpoint's leaves."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in blob_layout(tree[k], f"{where}/{k}")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in blob_layout(v, f"{where}/{i}")]
+    return [(where, None if tree is None else (tree.dtype, tuple(tree.shape)))]
 
 
 @pytest.mark.parametrize("ranks", [2, 4])

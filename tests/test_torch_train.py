@@ -346,16 +346,17 @@ def _decoder_pt(path, plane_channels):
 
 def test_cli_train_export_serves(tmp_path):
     """``cli.train --preset tiny --synthetic 4 --export_model_dir`` -> the
-    reference layout -> ``DragEngine.from_model_dir`` samples a finite latent
-    with the exported EMA weights; an export whose decoder comes from the
-    JAX package's orbax dir serves that decoder."""
+    JAX package's layout (unet.orbax, decoder.orbax, statistics/) ->
+    ``DragEngine.from_model_dir`` samples a finite latent with the exported
+    EMA weights; an export whose decoder comes from the JAX package's orbax
+    dir serves that decoder."""
     out, ckpt = tmp_path / "model", tmp_path / "ckpt"
     dec = _decoder_pt(tmp_path / "dec.pt", preset("tiny").plane_channels)
     state = tcli.main(["--preset", "tiny", "--synthetic", "4", "--steps", "3", "--ckpt_every", "2",
                        "--batch_size", "2", "--ckpt_dir", str(ckpt), "--export_model_dir", str(out),
                        "--decoder_from", dec, "--device", "cpu"])
     assert state.step == 3 and sorted(os.listdir(ckpt)) == ["step_2", "step_3"]
-    assert sorted(os.listdir(out)) == ["ddpm_tiny_ckpts", "statistics", "tiny_decoder.pt"]
+    assert sorted(os.listdir(out)) == ["decoder.orbax", "statistics", "unet.orbax"]
     engine = DragEngine.from_model_dir(str(out), config=preset("tiny"), device="cpu")
     for k, v in engine.unet.state_dict().items():
         assert torch.equal(v, state.ema_params[k]), k
@@ -365,22 +366,25 @@ def test_cli_train_export_serves(tmp_path):
 
     jdec, tdec = decoder_pair(preset("tiny").plane_channels, seed=4)
     jsave_params(str(tmp_path / "decoder.orbax"), jdec)  # --decoder_from the JAX package's orbax dir
-    tcli.export_model_dir(str(tmp_path / "m2"), state.ema_params, 3, "tiny",
-                          decoder_from=str(tmp_path / "decoder.orbax"), channels=6, plane_channels=2)
+    tcli.export_model_dir(str(tmp_path / "m2"), state.ema_params, decoder_from=str(tmp_path / "decoder.orbax"),
+                          channels=6)
     served = DragEngine.from_model_dir(str(tmp_path / "m2"), config=preset("tiny"), device="cpu")
     for k, v in tdec.state_dict().items():
         assert torch.equal(served.decoder.state_dict()[k], v), k
 
 
-@pytest.mark.parametrize("source", ["pt", "model_dir"])
+@pytest.mark.parametrize("source", ["pt", "model_dir", "export"])
 def test_cli_train_init_from(tmp_path, source):
-    """``--init_from`` a reference ``.pt`` (or the category dir holding it):
-    the run starts from exactly those weights (0 steps)."""
+    """``--init_from`` a reference ``.pt`` (or the category dir holding it,
+    or a model dir ``--export_model_dir`` wrote: its ``unet.orbax``): the
+    run starts from exactly those weights (0 steps)."""
     init = init_unet_(UNetModel(preset("tiny").unet), torch.Generator().manual_seed(8))
     ckpts = tmp_path / "src" / "ddpm_tiny_ckpts"
     ckpts.mkdir(parents=True)
     torch.save(init.state_dict(), ckpts / "ema_5.pt")
-    path = ckpts / "ema_5.pt" if source == "pt" else tmp_path / "src"
+    if source == "export":
+        tcli.export_model_dir(str(tmp_path / "exported"), init.state_dict(), channels=6)
+    path = {"pt": ckpts / "ema_5.pt", "model_dir": tmp_path / "src", "export": tmp_path / "exported"}[source]
     state = tcli.main(["--preset", "tiny", "--synthetic", "2", "--steps", "0", "--batch_size", "2",
                        "--ckpt_dir", str(tmp_path / "ck"), "--init_from", str(path), "--device", "cpu"])
     for k, v in init.state_dict().items():

@@ -295,8 +295,7 @@ def train_tp(rank, inputs, out_dir):
     if rank == 0:
         torch.save(tr["decoder"], dec)
     pmesh.barrier()
-    export_model_dir(export, state.ema_params, state.step, "tp", decoder_from=dec, channels=6, plane_channels=2,
-                     model=state.model, mesh=mesh)
+    export_model_dir(export, state.ema_params, decoder_from=dec, channels=6, model=state.model, mesh=mesh)
     out["export_dir"] = export
     out["ema_whole"] = {k: v.numpy().copy() for k, v in ptensor.gather_named(state.model, state.ema_params).items()}
 
