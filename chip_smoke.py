@@ -17,10 +17,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    and at 512),
    and time kernel, plain version, the closest PyTorch library call, and
    the least time the card could take (``bound_ms``); then the backward
-   pass: gradients through each kernel's autograd Function (kernel forward,
-   plain recompute backward) against autograd through the plain
-   composition, at every chairs input at batch 1 and at the fp32 UNets'
-   inputs;
+   kernels (``gn_bwd_reduce``, ``gn_bwd_apply``, ``attn_bwd_dq``,
+   ``attn_bwd_dkdv``) element by element against their plain twins at the
+   chairs train step's shapes (batch 8), the heads-by-count and the fp32
+   UNets' shapes, timed beside the twins, the bound and the backward of
+   ``F.scaled_dot_product_attention``; then gradients through each
+   kernel's autograd Function (kernel forward, backward kernels) against
+   autograd through the plain composition, at every chairs input at batch
+   1 and at the fp32 UNets' inputs, with and without FiLM, one launch of
+   each backward kernel per call;
 3. check the whole UNet on the card against the same module on the CPU
    (plain versions) on a small input: a bf16 torso at head dim 64 (the
    wgmma attention kernel), then the ``tiny`` preset (fp32 torso, head dim
@@ -49,10 +54,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    in every run of phases 3 to 8 the launch counters are reset just before
    it and read just after it, and each must equal the UNet forwards of that
    run times the kernel's calls per forward (a drag or fit step is one
-   forward; its backward recomputes through the plain versions and launches
-   nothing, but under remat it runs the blocks the loss reaches a second
-   time, ``models/unet.py::kernel_calls_recomputed`` per step; chairs runs
-   launch no generic attention, the fp32 runs no wgmma attention);
+   forward) plus, for each backward pass, the two backward kernels of every
+   GroupNorm-SiLU and attention node it runs (a drag step's loss reaches
+   the blocks ``models/unet.py::kernel_calls_recomputed`` lists for its
+   feature tap, a fit step's every call of the forward); under remat the
+   backward also runs those blocks' forward kernels a second time; chairs
+   runs launch no generic attention, the fp32 runs no wgmma attention;
 5. the serving surfaces on the same chairs engine: ``fit_real_shape_direct``
    of the first 256^3 mesh at the published ``FitConfig`` (its loss must
    fall), ``morph`` of two ``sample_latent``s at 3 frames, ``cli.morph``,
@@ -87,8 +94,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    overfitting 4 latents in 30 steps; train s/step (first and steady),
    peak memory, checkpoint bytes, write and read seconds and MB/s, and
    decoder s/step printed; every train step
-   launches the forward's kernels and, under remat, every block's again
-   (141/141/32 per chairs step, exact);
+   launches the forward's kernels, under remat every block's again, and
+   the backward kernels of every call (141/141/32 forward and 71/71/16/16
+   backward per chairs step, exact);
 8. the remaining CLIs and host modules on the chairs engine of phase 4
    (or one built alike): ``cli.decode`` of phase 4's DDIM triplane on the
    card at 128^3 with ``--cross_section``, held to the same planes decoded
@@ -204,17 +212,25 @@ KEPT_MODELS = os.path.join(WORK, "kept_models")  # cli.train's exported model di
 SIGNAL_DIR = os.path.join(WORK, "signal_chairs")  # phases 9 and 10's servable model dir (signal_reference)
 TIME_LIMIT_S = 1100  # the run must end well inside 1200 s, build included
 
-TPU_KERNELS = {
+TPU_KERNELS = {  # the Pallas kernel, or for a backward kernel the custom_vjp's backward, it replaces
     "gn_stats": "ishapediting_tpu/ops/pallas_kernels.py:109",
     "gn_norm": "ishapediting_tpu/ops/pallas_kernels.py:126",
     "attention": "ishapediting_tpu/ops/pallas_kernels.py:259",
     "attention_generic": "ishapediting_tpu/ops/pallas_kernels.py:259",
+    "gn_bwd_reduce": "ishapediting_tpu/ops/pallas_kernels.py:214",
+    "gn_bwd_apply": "ishapediting_tpu/ops/pallas_kernels.py:214",
+    "attn_bwd_dq": "ishapediting_tpu/ops/pallas_kernels.py:311",
+    "attn_bwd_dkdv": "ishapediting_tpu/ops/pallas_kernels.py:311",
 }
 SOURCES = {
     "gn_stats": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
     "gn_norm": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
     "attention": "ishapediting_tpu_torch/csrc/attention.cu",
     "attention_generic": "ishapediting_tpu_torch/csrc/attention_generic.cu",
+    "gn_bwd_reduce": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
+    "gn_bwd_apply": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
+    "attn_bwd_dq": "ishapediting_tpu_torch/csrc/attention_bwd.cu",
+    "attn_bwd_dkdv": "ishapediting_tpu_torch/csrc/attention_bwd.cu",
 }
 
 
@@ -389,7 +405,7 @@ def kernel_checks(hk, dev):
                 bound_ms=nb_ms, bound_by=nb_by,
             )
 
-    # Backward through the autograd.Function (plain recompute) at a small shape.
+    # Backward through the autograd.Function (the backward kernels) at a small shape.
     x, scale, bias, f = gn_inputs(gen, (2, 8, 8, 64), torch.float32, True, dev)
     leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, *f)]
     ref = [t.clone().requires_grad_(True) for t in (x, scale, bias, *f)]
@@ -518,26 +534,156 @@ def grad_rel_err(fn, plain, inputs, seed) -> float:
     return err
 
 
+def check_rel(name, got, want, tol) -> float:
+    """max |got - want| <= tol * max |want|, everything finite; returns
+    max |got - want|."""
+    err = max_err(got, want)
+    rel = err / max(float(want.float().abs().max()), 1e-30)
+    ok = rel <= tol and bool(got.isfinite().all())
+    say(f"  {name}: max_abs_err {err:.3e}, relative to the largest {rel:.2e} (tol {tol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+# The backward kernels at the main path's shapes: the chairs train step's
+# GroupNorm inputs at batch 8 (the largest, with FiLM: the second norm of a
+# ResBlock), the widest, and an fp32 UNet's (one channel per group); the
+# chairs attention at batch 8 (T 1024, 256, 64), the heads-by-count head dims
+# at batch 1, and the fp32 UNets' head dims 8 and 16. The first case of each
+# is its kernels' headline row.
+BWD_GN_CASES = [((8, 128, 128, 256), BF16, True), ((8, 64, 64, 512), BF16, False),
+                ((1, 8, 8, 2048), BF16, True), ((1, 16, 16, 16), FP32, True), ((2, 16, 16, 96), FP32, True)]
+BWD_ATTN_CASES = [(8, 1024, 8, 64, BF16), (8, 256, 12, 64, BF16), (8, 64, 16, 64, BF16),
+                  (1, 256, 4, 192, BF16), (1, 64, 4, 256, BF16), (2, 64, 4, 8, FP32), (1, 64, 4, 16, FP32)]
+BWD_TOL = {BF16: 2e-2, FP32: 1e-5}  # of the largest value: one rounding to bf16, or fp32 sums in another order
+# gn_bwd_reduce's partials, of the largest: fp32 sums in another order; in
+# bf16 also a rounding tie of the emulated composition broken the other way
+# now and then (the kernel forms xhat by one fma), one bf16 ulp of one term
+GN_SUMS_TOL = {BF16: 1e-3, FP32: 1e-4}
+
+
+def backward_kernel_checks(hk, dev, report) -> None:
+    """Each backward kernel element by element against its plain twin on the
+    same inputs (the reduce's partials, dx, dQ with the workspace, dK and
+    dV), and its device ms beside the twin's, the bound and (attention) the
+    backward of ``F.scaled_dot_product_attention``."""
+    from ishapediting_tpu_torch.ops.nn import effective_groups
+    from ishapediting_tpu_torch.utils.device import bound_ms, device_ms
+
+    say("[2] backward kernels against their plain twins (main-path shapes)")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {k: [] for k in ("gn_bwd_reduce", "gn_bwd_apply", "attn_bwd_dq", "attn_bwd_dkdv")}
+    for shape, dtype, film in BWD_GN_CASES:
+        x, scale, bias, f = gn_inputs(gen, shape, dtype, film, dev)
+        gy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        g = effective_groups(shape[-1], 32)
+        part = hk.gn_stats_cuda(x, g)
+        tag = f"{list(shape)} {str(dtype)[6:]}{' film' if film else ''}"
+        sums = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
+        torch.cuda.synchronize()
+        err_r = check_rel(f"gn_bwd_reduce {tag}, (S1, S2) partials", sums,
+                          hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f), GN_SUMS_TOL[dtype])
+        coef = hk.gn_bwd_coefficients(sums, scale, bias, shape[1] * shape[2], g, f)[0]
+        dx = hk.gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, film=f)
+        torch.cuda.synchronize()
+        err_a = check_rel(f"gn_bwd_apply {tag}, dx", dx,
+                          hk.gn_bwd_apply_plain(x, part, gy, coef, scale, bias, film=f), BWD_TOL[dtype])
+        params = nbytes(part, scale, bias, *(f or ()))
+        rb_ms, rb_by = bound_ms(nbytes(x, gy, sums) + params, fp32_flops=16 * x.numel())
+        ab_ms, ab_by = bound_ms(nbytes(x, gy, dx, coef) + params, fp32_flops=18 * x.numel())
+        r_ms = device_ms(lambda: hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f),
+                         kernel="gn_bwd_reduce_kernel")
+        a_ms = device_ms(lambda: hk.gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, film=f),
+                         kernel="gn_bwd_apply_kernel")
+        rp_ms = device_ms(lambda: hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f), 5)
+        ap_ms = device_ms(lambda: hk.gn_bwd_apply_plain(x, part, gy, coef, scale, bias, film=f), 5)
+        all_ms = device_ms(lambda: hk.gn_silu_bwd_cuda(x, part, gy, scale, bias, film=f))
+        say(f"    gn_bwd_reduce {r_ms:.4f} ms (plain {rp_ms:.4f}, bound {rb_ms:.4f}), gn_bwd_apply "
+            f"{a_ms:.4f} ms (plain {ap_ms:.4f}, bound {ab_ms:.4f}); the whole backward with its torch "
+            f"ops {all_ms:.4f} ms")
+        base = dict(shape=list(shape), dtype=str(dtype)[6:], film=film, library_ms=None, backward_ms=all_ms)
+        rows["gn_bwd_reduce"].append(dict(base, ms=r_ms, plain_ms=rp_ms, bound_ms=rb_ms, bound_by=rb_by,
+                                          max_abs_err=err_r))
+        rows["gn_bwd_apply"].append(dict(base, ms=a_ms, plain_ms=ap_ms, bound_ms=ab_ms, bound_by=ab_by,
+                                         max_abs_err=err_a))
+    for n, t, heads, ch, dtype in BWD_ATTN_CASES:
+        qkv = torch.randn((n, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
+        gout = torch.randn((n, t, heads * ch), generator=gen, device=dev).to(dtype)
+        out = hk.attention_qkv(qkv, heads)
+        tag = f"T={t} H={heads} ch={ch} {str(dtype)[6:]} batch {n}"
+        dqkv = torch.zeros_like(qkv)
+        lse, d = hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv)
+        hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv)
+        torch.cuda.synchronize()
+        dq, lse_p, d_p = hk.attn_bwd_dq_plain(qkv, out, gout, heads)
+        dk, dv = hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads)
+        got = dqkv.view(n, t, heads, 3, ch).unbind(3)
+        tol = BWD_TOL[dtype]
+        err_q = max(check_rel(f"attn_bwd_dq {tag}, {what}", a, b, tol)
+                    for what, a, b in (("log-sum-exp", lse, lse_p), ("D", d, d_p), ("dQ", got[0], dq)))
+        err_kv = max(check_rel(f"attn_bwd_dkdv {tag}, {what}", a, b, tol)
+                     for what, a, b in (("dK", got[1], dk), ("dV", got[2], dv)))
+        q_ms = device_ms(lambda: hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv), kernel="attn_bwd_dq_kernel")
+        kv_ms = device_ms(lambda: hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv),
+                          kernel="attn_bwd_dkdv_kernel")
+        qp_ms = device_ms(lambda: hk.attn_bwd_dq_plain(qkv, out, gout, heads), 5)
+        kvp_ms = device_ms(lambda: hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads), 5)
+        leaves = [a.detach().requires_grad_(True)
+                  for a in qkv.view(n, t, heads, 3, ch).permute(3, 0, 2, 1, 4).unbind(0)]
+        o = F.scaled_dot_product_attention(*leaves, scale=ch ** -0.5)
+        go = gout.view(n, t, heads, ch).transpose(1, 2)
+        lib_ms = library_ms(lambda: torch.autograd.grad(o, leaves, go, retain_graph=True))
+        # dQ's function needs three T^2*ch products (S, dP, dQ), dK and dV's
+        # four (S, dP, dV, dK); about 8 fp32 operations per logit each.
+        logits = 8.0 * n * heads * t * t
+        work = [dict(tensor_flops=2.0 * k * n * heads * t * t * ch, fp32_flops=logits) if dtype == BF16
+                else dict(fp32_flops=2.0 * k * n * heads * t * t * ch + logits) for k in (3, 4)]
+        qb_ms, qb_by = bound_ms(nbytes(qkv, out, gout, lse, d) + nbytes(dqkv) // 3, **work[0])
+        kvb_ms, kvb_by = bound_ms(nbytes(qkv, gout, lse, d) + 2 * nbytes(dqkv) // 3, **work[1])
+        say(f"    attn_bwd_dq {q_ms:.4f} ms (plain {qp_ms:.4f}, bound {qb_ms:.4f} {qb_by}), attn_bwd_dkdv "
+            f"{kv_ms:.4f} ms (plain {kvp_ms:.4f}, bound {kvb_ms:.4f} {kvb_by}); SDPA backward {lib_ms} ms")
+        base = dict(shape=list(qkv.shape), heads=heads, dtype=str(dtype)[6:], library_ms=lib_ms,
+                    library="backward of F.scaled_dot_product_attention (dQ, dK, dV: both kernels' work)")
+        rows["attn_bwd_dq"].append(dict(base, ms=q_ms, plain_ms=qp_ms, bound_ms=qb_ms, bound_by=qb_by,
+                                        max_abs_err=err_q))
+        rows["attn_bwd_dkdv"].append(dict(base, ms=kv_ms, plain_ms=kvp_ms, bound_ms=kvb_ms, bound_by=kvb_by,
+                                          max_abs_err=err_kv))
+        del o, leaves
+    tols = {"gn_bwd_reduce": "bf16 1e-3, fp32 1e-4 of the largest partial",
+            "gn_bwd_apply": "bf16 2e-2, fp32 1e-5 of the largest",
+            "attn_bwd_dq": "bf16 2e-2, fp32 1e-5 of the largest", "attn_bwd_dkdv": "bf16 2e-2, fp32 1e-5 of the largest"}
+    for name, r in rows.items():
+        report[name] = dict(r[0], tol=tols[name], shapes=r)
+
+
 def backward_checks(hk, dev, report) -> None:
     from ishapediting_tpu_torch.ops.attention import dense_qkv_attention
 
-    say("[2] backward: autograd through each kernel's Function (kernel forward, plain "
-        "recompute) against autograd through the plain composition, batch 1")
+    backward_kernel_checks(hk, dev, report)
+    say("[2] backward: autograd through each kernel's Function (kernel forward, backward kernels) "
+        "against autograd through the plain composition, batch 1")
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {"gn": 0.0, "attention": 0.0, "attention_generic": 0.0}
     cases = [(h, w, c, dt) for h, w, c, dt in CHAIRS_GN] + [(h, w, c, FP32) for h, w, c in FP32_GN]
+    hk.reset_launch_counts()
     for h, w, c, dtype in cases:
-        x, scale, bias, f = gn_inputs(gen, (1, h, w, c), dtype, True, dev)
-        err = grad_rel_err(lambda a, s, b, f1, f2: hk.groupnorm_silu(a, s, b, film=(f1, f2)),
-                           lambda a, s, b, f1, f2: hk.groupnorm_silu_plain(a, s, b, film=(f1, f2)),
-                           (x, scale, bias, *f), seed=c)
-        worst["gn"] = max(worst["gn"], err)
-        if not err <= GRAD_TOL[dtype]:
-            fail(f"groupnorm_silu gradient at [1,{h},{w},{c}] {dtype}: relative error {err:.2e}")
-    say(f"  groupnorm_silu, {len(cases)} inputs (21 chairs, {len(FP32_GN)} fp32 UNet): "
+        for film in (False, True):
+            x, scale, bias, f = gn_inputs(gen, (1, h, w, c), dtype, film, dev)
+            if film:
+                fn = lambda a, s, b, f1, f2: hk.groupnorm_silu(a, s, b, film=(f1, f2))  # noqa: E731
+                plain = lambda a, s, b, f1, f2: hk.groupnorm_silu_plain(a, s, b, film=(f1, f2))  # noqa: E731
+            else:
+                fn, plain = hk.groupnorm_silu, hk.groupnorm_silu_plain
+            err = grad_rel_err(fn, plain, (x, scale, bias, *(f or ())), seed=c)
+            worst["gn"] = max(worst["gn"], err)
+            if not err <= GRAD_TOL[dtype]:
+                fail(f"groupnorm_silu gradient at [1,{h},{w},{c}] {dtype} film {film}: relative error {err:.2e}")
+    say(f"  groupnorm_silu, {len(cases)} inputs (21 chairs, {len(FP32_GN)} fp32 UNet) with and without FiLM: "
         f"largest relative gradient error {worst['gn']:.2e} (tol 1e-2 bf16, 1e-5 fp32) ok")
-    for (t, heads, ch), dtype in ([(a, BF16) for a in CHAIRS_ATTN + HEADS_BY_COUNT_ATTN]
-                                  + [(a, FP32) for a in FP32_ATTN]):
+    attn_cases = [(a, BF16) for a in CHAIRS_ATTN + HEADS_BY_COUNT_ATTN] + [(a, FP32) for a in FP32_ATTN]
+    for (t, heads, ch), dtype in attn_cases:
         qkv = torch.randn((1, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
         err = grad_rel_err(lambda q: hk.attention_qkv(q, heads),
                            lambda q: dense_qkv_attention(q, heads), (qkv,), seed=t + ch)
@@ -548,9 +694,20 @@ def backward_checks(hk, dev, report) -> None:
             f"{err:.2e} (tol {GRAD_TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{route} gradient disagrees with the plain composition's")
+    # each Function backward launched its two kernels, and nothing else ran the plain composition
+    want_gn, want_attn = 2 * len(cases), len(attn_cases)
+    got = dict(hk.LAUNCHES)
+    say(f"  launches in the gradient checks: {got}")
+    if (got["gn_bwd_reduce"], got["gn_bwd_apply"], got["attn_bwd_dq"], got["attn_bwd_dkdv"]) != (
+            want_gn, want_gn, want_attn, want_attn):
+        fail(f"the gradient checks' backward launches {got} are not {want_gn} per GroupNorm kernel and "
+             f"{want_attn} per attention kernel")
     report["gn_stats"]["backward_rel_err"] = report["gn_norm"]["backward_rel_err"] = worst["gn"]
     report["attention"]["backward_rel_err"] = worst["attention"]
     report["attention_generic"]["backward_rel_err"] = worst["attention_generic"]
+    report["gn_bwd_reduce"]["backward_rel_err"] = report["gn_bwd_apply"]["backward_rel_err"] = worst["gn"]
+    report["attn_bwd_dq"]["backward_rel_err"] = report["attn_bwd_dkdv"]["backward_rel_err"] = max(
+        worst["attention"], worst["attention_generic"])
 
 
 # ---------------------------------------------------------------------------
@@ -594,7 +751,7 @@ def unet_card_check(hk, dev, cfg, tol, what):
         out_g, feat_g = model(x.to(dev), t.to(dev), feat_layer=1)
     torch.cuda.synchronize()
     gn, attn = kernel_calls_per_forward(cfg)
-    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": 0}
+    want = dict(zero_counts(hk), gn_stats=gn, gn_norm=gn)
     want[hk.attention_route(cfg.torch_compute_dtype, cfg.num_head_channels)] = attn
     say(f"  {what}: launches {dict(hk.LAUNCHES)} (want {want})")
     if dict(hk.LAUNCHES) != want:
@@ -629,7 +786,8 @@ def edit_gate_on_card(hk, counter, totals, device="cuda") -> dict:
     base, guided, original, edited = gate_drags(engine, asset)
     sync()
     wall = time.perf_counter() - t0
-    check_counts(hk, "edit gate", counter.n, per, totals, route)
+    check_counts(hk, "edit gate", counter.n, per, totals, route, steps=len(base) + len(guided),
+                 back=backward_nodes(engine.config.unet, engine.config.edit.feat_layer))
     cpu_engine, _ = engine_from_asset(device="cpu")
     cbase, cguided, _, _ = gate_drags(cpu_engine, asset)
     reduction = 1.0 - guided[-1] / base[-1]
@@ -668,18 +826,46 @@ class ForwardCounter:
         self._handle.remove()
 
 
-def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", again=(0, 0), steps=0):
+def zero_counts(hk) -> dict:
+    return {k: 0 for k in hk.LAUNCHES}
+
+
+def backward_nodes(ucfg, feat_layer: int = -1) -> tuple:
+    """(GroupNorm-SiLU, attention) autograd nodes that one backward pass
+    runs, each launching its two backward kernels once: a drag step's loss
+    reaches the feature tap at ``feat_layer`` (the blocks
+    ``kernel_calls_recomputed`` lists); a fit or train step's
+    (``feat_layer`` -1) the output, so every call of the forward."""
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward, kernel_calls_recomputed
+
+    return kernel_calls_per_forward(ucfg) if feat_layer < 0 else kernel_calls_recomputed(ucfg, feat_layer)
+
+
+def backward_launches(hk, ucfg, feat_layer: int = -1, steps: int = 1) -> dict:
+    """The backward kernels' launches of ``steps`` backward passes (see
+    ``backward_nodes``), as a LAUNCHES-keyed dict."""
+    gn, attn = backward_nodes(ucfg, feat_layer)
+    return dict(zero_counts(hk), gn_bwd_reduce=gn * steps, gn_bwd_apply=gn * steps,
+                attn_bwd_dq=attn * steps, attn_bwd_dkdv=attn * steps)
+
+
+def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", again=(0, 0), steps=0,
+                 back=(0, 0)):
     """Launches of the run just made: each GroupNorm-SiLU call launches
-    gn_stats and gn_norm, each attention call ``attn_kernel`` only; under
-    remat, each of ``steps`` backward passes also recomputes ``again``
-    (GroupNorm-SiLU, attention) calls. Without remat a backward launches
-    nothing."""
+    gn_stats and gn_norm, each attention call ``attn_kernel`` only; each of
+    ``steps`` backward passes launches gn_bwd_reduce and gn_bwd_apply for
+    each of ``back[0]`` GroupNorm-SiLU nodes and attn_bwd_dq and
+    attn_bwd_dkdv for each of ``back[1]`` attention nodes
+    (``backward_nodes``), and under remat also recomputes ``again``
+    (GroupNorm-SiLU, attention) calls."""
     gn, attn = per_fwd
-    want = {"gn_stats": gn * forwards + again[0] * steps, "gn_norm": gn * forwards + again[0] * steps,
-            "attention": 0, "attention_generic": 0}
+    want = dict(zero_counts(hk), gn_stats=gn * forwards + again[0] * steps,
+                gn_norm=gn * forwards + again[0] * steps, gn_bwd_reduce=back[0] * steps,
+                gn_bwd_apply=back[0] * steps, attn_bwd_dq=back[1] * steps, attn_bwd_dkdv=back[1] * steps)
     want[attn_kernel] = attn * forwards + again[1] * steps
     got = dict(hk.LAUNCHES)
-    extra = f", of which {again[0] * steps}/{again[0] * steps}/{again[1] * steps} recomputed" if steps else ""
+    extra = (f", {steps} backward passes of {back[0]}/{back[1]} nodes, {again[0] * steps}/{again[0] * steps}/"
+             f"{again[1] * steps} forward launches recomputed" if steps else "")
     say(f"  launches in {phase}: {got} for {forwards} UNet forwards{extra} (want {want})")
     if forwards <= 0 or got != want:
         fail(f"{phase}: launch counts {got} are not {want}")
@@ -775,9 +961,10 @@ def fmt_walls(walls) -> str:
 def counted(hk, counter, per_fwd, totals, phase, fn, forwards, **recompute):
     """Run ``fn`` with the launch counters and the forward counter set to 0
     just before and read just after: ``forwards`` UNet forwards, each
-    launching its calls per forward (plus ``recompute``, as
-    ``check_counts`` takes it). Returns (fn's result, wall s, peak device
-    GiB of the run)."""
+    launching its calls per forward (plus the backward passes and remat
+    recomputes of ``recompute``, as ``check_counts`` takes them; its
+    ``steps`` may be a function, called after the run). Returns (fn's
+    result, wall s, peak device GiB of the run)."""
     sync()
     hk.reset_launch_counts()
     counter.n = 0
@@ -789,6 +976,8 @@ def counted(hk, counter, per_fwd, totals, phase, fn, forwards, **recompute):
     peak = torch.cuda.max_memory_allocated() / 2**30
     if counter.n != forwards:
         fail(f"{phase}: {counter.n} UNet forwards, expected {forwards}")
+    if callable(recompute.get("steps")):
+        recompute["steps"] = recompute["steps"]()
     check_counts(hk, phase, counter.n, per_fwd, totals, **recompute)
     return out, wall, peak
 
@@ -842,7 +1031,8 @@ def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
             say(f"  inversion: {out['inversion_s']:.3f} s for {w_time} steps on the card, wall "
                 f"{wall:.1f} s with the mesh")
         say(f"  DragEngine.drag_edit noise_mode={mode!r}, {w_time} guided steps, one handle")
-        mesh, wall, _ = counted(hk, counter, per_fwd, totals, f"drag {mode}", lambda: drag(mode), w_time)
+        mesh, wall, _ = counted(hk, counter, per_fwd, totals, f"drag {mode}", lambda: drag(mode), w_time,
+                                steps=w_time, back=backward_nodes(engine.config.unet, engine.config.edit.feat_layer))
         steps = np.diff(ticks)
         losses = engine.last_drag_losses
         if not (np.isfinite(engine.edited_latent).all() and np.isfinite(losses["motion"]).all()
@@ -867,7 +1057,8 @@ def chairs_edit_runs(hk, counter, per_fwd, totals, engine, x0) -> dict:
     _, wall, _ = counted(hk, counter, per_fwd, totals, "fit",
                          lambda: engine.fit_real_shape(mesh=first_mesh, path=fit_dir, seed=0,
                                                        fit_steps=fit_steps),
-                         fit_steps + -(-w_time // engine.config.edit.inversion_chunk))
+                         fit_steps + -(-w_time // engine.config.edit.inversion_chunk),
+                         steps=fit_steps, back=backward_nodes(engine.config.unet))
     h, w, c = engine.config.latent_shape
     tri = np.load(os.path.join(fit_dir, "tri_feat.npy"))
     recon = os.path.join(fit_dir, "mesh_recon.obj")
@@ -911,8 +1102,9 @@ def run_cli_edit(hk, counter, per_fwd, totals, preset_name="chairs", num_steps=2
         with contextlib.redirect_stdout(buf):
             return edit_main(argv)
 
-    engine, wall, _ = counted(hk, counter, per_fwd, totals, "cli.edit", run,
-                           engine_steps(cfg) + min(edit_steps, cfg.edit.w_time))
+    drags = min(edit_steps, cfg.edit.w_time)
+    engine, wall, _ = counted(hk, counter, per_fwd, totals, "cli.edit", run, engine_steps(cfg) + drags,
+                              steps=drags, back=backward_nodes(cfg.unet, cfg.edit.feat_layer))
     for f in ("original.obj", "edit00.obj", "EditLog"):
         if not os.path.exists(os.path.join(out, f)) or os.path.getsize(os.path.join(out, f)) == 0:
             fail(f"cli.edit: {f} missing or empty")
@@ -1184,8 +1376,9 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
             return batch_main(argv)
 
     chunk = 2  # invert_batched's default: 2 steps per forward
+    drag_back = backward_nodes(cfg.unet, cfg.edit.feat_layer)
     res, wall, peak = counted(hk, counter, per_fwd, totals, "cli.batch_edit", run_batch,
-                              steps + -(-w_time // chunk) + w_time)
+                              steps + -(-w_time // chunk) + w_time, steps=w_time, back=drag_back)
     for i in (1, 2):
         for f in (f"original{i:02d}.obj", f"edit{i:02d}.obj"):
             if os.path.getsize(os.path.join(bout, f)) == 0:
@@ -1212,7 +1405,7 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
         fn = lambda remat=remat: drag_edit_batched(  # noqa: E731
             beng.sched, beng.model_fn(feat=True, remat=remat), inv["w"], inv["features"], problems,
             w_time=w_time, scale=scale, cof=cof, noises=noises)
-        kw = dict(again=again, steps=w_time) if remat else {}
+        kw = dict(again=again if remat else (0, 0), steps=w_time, back=drag_back)
         edited, wall, peak = counted(hk, counter, per_fwd, totals, f"batched drag ({label})", fn, w_time,
                                      **kw)
         batched[label] = edited
@@ -1229,7 +1422,7 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
         beng.feature_guidance = inv["features"][i]
         counted(hk, counter, per_fwd, totals, f"single-shape drag {i}", lambda i=i: beng.drag_edit(
             HANDLE[0], HANDLE[1], scale=scale, cof=cof, noises=[noises[j, i] for j in range(w_time)]),
-            w_time)
+            w_time, steps=w_time, back=drag_back)
         singles.append(rel_l2(batched["plain"][i], beng.edited_latent))
     say(f"  batched drag against two single-shape drag_edit runs, same noises: relative L2 "
         f"{singles[0]:.2e}, {singles[1]:.2e}; remat against plain {err_remat:.2e}, remat twice "
@@ -1245,7 +1438,8 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
         f"{len(meshes[1].triangles)} triangles), 3 guided steps at batch 2")
     lat, wall, peak = counted(hk, counter, per_fwd, totals, "batched fit", lambda: fit_real_shapes_batched(
         sched_fit, beng.model_fn(), beng.decoder, meshes, beng.half_range, beng.middle,
-        beng._generator(0), latent_shape=cfg.latent_shape, fit_cfg=cfg.fit), 3)
+        beng._generator(0), latent_shape=cfg.latent_shape, fit_cfg=cfg.fit), 3, steps=3,
+        back=backward_nodes(cfg.unet))
     if lat.shape != (2,) + cfg.latent_shape or not bool(lat.isfinite().all()):
         fail("batched fit: latents not finite or of the wrong shape")
     out["batched_fit"] = dict(wall_s=wall, peak_gib=peak)
@@ -1281,8 +1475,9 @@ def serve_session(hk, counter, per_fwd, totals, cfg, card) -> dict:
             pass
 
     errors = []
-    th = threading.Thread(target=lambda: _capture(
-        lambda: serve_loop(instream, Out(), EditServer(device="cuda")), errors), daemon=True)
+    server = EditServer(device="cuda")
+    th = threading.Thread(target=lambda: _capture(lambda: serve_loop(instream, Out(), server), errors),
+                          daemon=True)
     reqs = [
         {"cmd": "init_random", "preset": "chairs", "num_steps": steps, "w_time": cfg.edit.w_time,
          "feat_layer": cfg.edit.feat_layer, "seed": 0},
@@ -1333,8 +1528,12 @@ def serve_session(hk, counter, per_fwd, totals, cfg, card) -> dict:
             fail(f"serve: failed responses {bad} {errors}")
         return walls, responses
 
+    # the stop lands after the drag's first chunk or a later one: the guided
+    # steps (each one backward pass) are those the engine recorded
+    guided = lambda: len(server.engine.last_drag_losses["motion"])  # noqa: E731
     (walls, responses), total, _ = counted(hk, counter, per_fwd, totals, "cli.serve session", session,
-                                           forwards)
+                                           forwards, steps=guided,
+                                           back=backward_nodes(cfg.unet, cfg.edit.feat_layer))
     drag = next(r for r in responses if r.get("cmd") == "drag")
     if not drag["stopped_early"] or not any(r.get("cmd") == "stop" for r in responses):
         fail("serve: the stop line did not stop the drag")
@@ -1359,16 +1558,17 @@ def launches_per_forward(hk, ucfg) -> dict:
     from ishapediting_tpu_torch.models.unet import attention_head_dims, kernel_calls_per_forward
 
     gn, _ = kernel_calls_per_forward(ucfg)
-    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": 0}
+    want = dict(zero_counts(hk), gn_stats=gn, gn_norm=gn)
     for ch in attention_head_dims(ucfg):
         want[hk.attention_route(ucfg.torch_compute_dtype, ch)] += 1
     return want
 
 
-def counted_routes(hk, counter, totals, phase, fn, forwards, per):
+def counted_routes(hk, counter, totals, phase, fn, forwards, per, extra=None):
     """Run ``fn`` with the launch counters and the forward counter set to 0
     just before and read just after: ``forwards`` UNet forwards, each
-    launching ``per`` (a LAUNCHES-keyed dict). Returns (fn's result, wall s)."""
+    launching ``per`` (a LAUNCHES-keyed dict), plus ``extra`` (the backward
+    passes' launches, ``backward_launches``). Returns (fn's result, wall s)."""
     sync()
     hk.reset_launch_counts()
     counter.n = 0
@@ -1377,7 +1577,7 @@ def counted_routes(hk, counter, totals, phase, fn, forwards, per):
     sync()
     wall = time.perf_counter() - t0
     got = dict(hk.LAUNCHES)
-    want = {k: v * forwards for k, v in per.items()}
+    want = {k: v * forwards + (extra or {}).get(k, 0) for k, v in per.items()}
     say(f"  launches in {phase}: {got} for {counter.n} UNet forwards (want {want})")
     if counter.n != forwards or got != want:
         fail(f"{phase}: {counter.n} forwards and launches {got}, expected {forwards} and {want}")
@@ -1408,7 +1608,7 @@ def heads_by_count_runs(hk, counter, totals) -> dict:
     cfg = dataclasses.replace(base.with_steps(20), edit=dataclasses.replace(
         base.edit, w_time=10, feat_layer=8, shape_resolution=64))
     per = launches_per_forward(hk, cfg.unet)
-    expected = {"gn_stats": 71, "gn_norm": 71, "attention": 5, "attention_generic": 11}
+    expected = dict(zero_counts(hk), gn_stats=71, gn_norm=71, attention=5, attention_generic=11)
     say(f"  heads-by-count UNet (num_heads 4, num_head_channels -1): per forward {per}")
     if per != expected:
         fail(f"heads-by-count launches per forward {per} are not {expected}")
@@ -1432,7 +1632,7 @@ def heads_by_count_runs(hk, counter, totals) -> dict:
     out["update_latent_params_s"] = wall
     mesh, wall = counted_routes(hk, counter, totals, "heads-by-count drag (2 guided steps)",
                                 lambda: engine.drag_edit(*HANDLE, seed=0, chunk=1, edit_steps=2),
-                                2, per)
+                                2, per, backward_launches(hk, cfg.unet, cfg.edit.feat_layer, steps=2))
     losses = engine.last_drag_losses
     if not (np.isfinite(engine.edited_latent).all() and np.isfinite(losses["motion"]).all()
             and len(losses["motion"]) == 2):
@@ -1453,11 +1653,14 @@ def heads_by_count_runs(hk, counter, totals) -> dict:
 def train_step_launches(hk, ucfg, remat: bool = True) -> dict:
     """Each kernel's launches in one train step of a UNet of config
     ``ucfg``: the forward's and, under remat, every block's again (the loss
-    reaches the output, and the output head is not checkpointed). The
-    kernels' backward recomputes the plain versions and launches nothing."""
+    reaches the output, and the output head is not checkpointed); the
+    backward kernels once for every GroupNorm-SiLU and attention call of the
+    forward."""
     from ishapediting_tpu_torch.models.unet import attention_head_dims, kernel_calls_recomputed
 
     want = launches_per_forward(hk, ucfg)
+    for k, v in backward_launches(hk, ucfg).items():
+        want[k] += v
     if remat:
         gn, _ = kernel_calls_recomputed(ucfg, -1, head=True)
         want["gn_stats"] += gn
@@ -1667,7 +1870,8 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
 
     chairs = preset(preset_name)
     per_step = train_step_launches(hk, chairs.unet)
-    expected = {"gn_stats": 141, "gn_norm": 141, "attention": 32, "attention_generic": 0}
+    expected = dict(zero_counts(hk), gn_stats=141, gn_norm=141, attention=32, gn_bwd_reduce=71,
+                    gn_bwd_apply=71, attn_bwd_dq=16, attn_bwd_dkdv=16)
     say(f"  {preset_name} train step at batch 8: per step {per_step}")
     if preset_name == "chairs" and per_step != expected:
         fail(f"chairs launches per train step {per_step} are not {expected}")
@@ -2243,7 +2447,8 @@ def gui_runs(hk, counter, totals, engine, per_fwd, dec_pt, device="cuda") -> dic
 
     app._edit_steps_edit.text_value = "2"
     _, out["drag_s"], _ = counted(hk, counter, per_fwd, totals, "GUI drag (2 guided steps)",
-                                  app._start_btn.click, 2)
+                                  app._start_btn.click, 2, steps=2,
+                                  back=backward_nodes(app.engine.config.unet, app.engine.config.edit.feat_layer))
     if not app._status.text.startswith("edit done (motion loss "):
         fail(f"GUI drag: status {app._status.text!r}")
     dragged = app.mesh
@@ -2574,7 +2779,9 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     tiny_per = kernel_calls_per_forward(preset("tiny").unet)
     if counter.n != tiny_edit_forwards():
         fail(f"rank {rank}: the tiny runs made {counter.n} UNet forwards, expected {tiny_edit_forwards()}")
-    check_counts(hk, f"rank {rank} tiny drag and morph", counter.n, tiny_per, totals, "attention_generic")
+    tiny = preset("tiny")
+    check_counts(hk, f"rank {rank} tiny drag and morph", counter.n, tiny_per, totals, "attention_generic",
+                 steps=tiny.edit.w_time, back=backward_nodes(tiny.unet, tiny.edit.feat_layer))
     tag(f"tiny invert + drag + morph over the ranks: {res['tiny_s']:.1f} s")
 
     res["totals"] = totals
@@ -2901,9 +3108,10 @@ def mini_tp_runs(model, inputs, dev, remat) -> dict:
 
 def mini_tp_launches(remat) -> dict:
     """Launches of ``mini_tp_runs``: ``MINI_TP_STEPS`` + 3 forwards (the
-    gradient's, the sampling steps, 2 drag steps); under remat the
-    gradient's backward recomputes every block and each drag step's those
-    its tap reaches."""
+    gradient's, the sampling steps, 2 drag steps); the gradient's backward
+    runs every node (its loss reaches the output) and each drag step's those
+    its tap reaches; under remat the gradient's backward recomputes every
+    block and each drag step's those its tap reaches."""
     from ishapediting_tpu_torch.config import UNetConfig
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward, kernel_calls_recomputed
 
@@ -2912,7 +3120,10 @@ def mini_tp_launches(remat) -> dict:
     if remat:
         head, tap = kernel_calls_recomputed(cfg, -1, head=True), kernel_calls_recomputed(cfg, MINI_TP_FEAT)
         gn, attn = gn + head[0] + 2 * tap[0], attn + head[1] + 2 * tap[1]
-    return {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": attn}
+    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": attn}
+    grad, drag = backward_nodes(cfg), backward_nodes(cfg, MINI_TP_FEAT)
+    gn_b, attn_b = grad[0] + 2 * drag[0], grad[1] + 2 * drag[1]
+    return dict(want, gn_bwd_reduce=gn_b, gn_bwd_apply=gn_b, attn_bwd_dq=attn_b, attn_bwd_dkdv=attn_b)
 
 
 def param_bytes(model) -> int:
@@ -3050,7 +3261,9 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     want = SERVE_FORWARDS[min(rank, 1)]
     if counter.n != want:
         fail(f"rank {rank}: cli.serve ran {counter.n} UNet forwards, expected {want}")
-    check_counts(hk, f"rank {rank} cli.serve", counter.n, per_fwd, totals)
+    drags = 2 if rank == 0 else 0  # the 2-step drag runs on the first rank
+    check_counts(hk, f"rank {rank} cli.serve", counter.n, per_fwd, totals, steps=drags,
+                 back=backward_nodes(chairs.unet, 8))
     tag(f"cli.serve over the ranks: {counter.n} UNet forwards, wall {res['serve_wall_s']:.1f} s")
 
     # (e) the chairs UNet cut over the model axis trains: two steps on the reference's draws
@@ -3606,7 +3819,7 @@ def main() -> None:
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     kernels = []
-    for name in ("gn_stats", "gn_norm", "attention", "attention_generic"):
+    for name in SOURCES:
         r = report[name]
         if totals.get(name, 0) <= 0:
             fail(f"{name} was not launched by the main-path runs")

@@ -540,3 +540,334 @@ extern "C" int ishape_gn_norm(const void* x, void* y, const void* part, const vo
 extern "C" const char* ishape_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+// ---------------------------------------------------------------------------
+// Backward: the VJP of groupnorm_silu, in place of
+// ishapediting_tpu/ops/pallas_kernels.py::_gn_silu_bwd, in two launches with
+// a few torch ops on [N, C] tensors between them
+// (ops/hopper_kernels.py::gn_bwd_coefficients).
+//
+// With xhat = (x - mean)*rstd (the forward's statistics), a = xhat*gamma +
+// beta, z = a*t1 + fb (t1 = 1 + fs; z = a without FiLM) and the SiLU
+// y = z*sigmoid(z), the cotangent at z is
+// gz = gy*sigmoid(z) + gy*z*(1 - sigmoid(z))*sigmoid(z). gz is evaluated at
+// the rounding points in x's dtype of eager PyTorch's backward of the port's
+// plain composition on the card (a, a*t1, z, sigmoid(z), each product,
+// 1 - sigmoid(z) and the sum rounded to bf16, as PyTorch's CUDA bf16 sigmoid
+// backward rounds after each op; no rounding in fp32). That backward is the
+// reference of chip_smoke.py's 1e-2 gate (GRAD_TOL), and its own bf16
+// rounding puts an exact fp32 gradient near the gate's edge. The JAX
+// package's VJP rounds elsewhere: it differentiates _gn_silu_reference,
+// which forms a*(1 + fs) + fb in fp32 and rounds once.
+//   3. gn_bwd_reduce: per (sample, channel) S1 = sum_hw gz and
+//      S2 = sum_hw gz*xhat, as fp32 partials [N, S, 2, C], one per row block
+//      (S = grid_x): gn_norm's launch shape and row walk, each thread
+//      summing its channel vector's rows in registers, then the block's
+//      threads of one channel vector summed in shared memory in a fixed
+//      order. No atomics: the same result on every run.
+//   4. gn_bwd_apply: dx = rstd*(gamma*t1*gz - A - xhat*B) in x's dtype,
+//      with A, B the group means of gamma*t1*gz and of that times xhat
+//      (coef [N, 2, G]).
+// Both merge the forward's partials per block, as gn_norm does, so the
+// statistics are the forward's bit for bit. A thread's channel vector lies
+// in one group (16-byte vectors only where cg % VEC == 0, as gn_stats takes
+// them), so rstd, mean, A and B are one register each; gamma, beta, t1 and
+// fb are four per channel, so the backward kernels run one 512-thread block
+// per SM (128 registers a thread), two rows in flight a thread.
+//
+// Bound on this card: memory. reduce reads x and gy, apply reads them again
+// and writes dx: five x-sized passes (the second read partly from the 50 MB
+// L2), against a few dozen fp32 operations per element.
+
+namespace {
+
+// The (mean, rstd) of every group of sample n from the forward's partials,
+// into shared memory, merged as gn_norm merges them (a warp per group,
+// Chan's merge over the splits in a shuffle tree). Ends with a barrier.
+__device__ __forceinline__ void merge_stats(const float* __restrict__ part, int n, int G, int S,
+                                            float eps, float* s_mean, float* s_rstd) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int full_warps = (blockDim.x * blockDim.y) >> 5;
+  for (int g = warp; warp < full_warps && g < G; g += full_warps) {
+    const float* p = part + ((long long)n * G + g) * S * 3;
+    Stat acc = {0.f, 0.f, 0.f};
+    for (int s = lane; s < S; s += 32) {
+      const Stat st = {p[3 * s], p[3 * s + 1], p[3 * s + 2]};
+      chan_merge(acc, st);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) chan_merge(acc, shfl_down_stat(acc, off));
+    if (lane == 0) {
+      s_mean[g] = acc.mean;
+      s_rstd[g] = rsqrtf(acc.m2 / acc.n + eps);
+    }
+  }
+  __syncthreads();
+}
+
+// A value rounded to T and back (no-op for fp32).
+template <typename T>
+__device__ __forceinline__ float rnd(float v);
+template <>
+__device__ __forceinline__ float rnd<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The per-channel terms of channel vector v of sample n: gamma, beta and
+// the FiLM's t1 = 1 + fs and fb (1 and 0 without FiLM; film: [N, 2, C] of
+// t1, fb). The vector's channels lie in one group g (returned), whose
+// xhat is x*r + mr.
+template <int VEC>
+struct Channels {
+  float g[VEC], be[VEC], t1[VEC], fb[VEC], r, mr;
+};
+template <int VEC>
+__device__ __forceinline__ int load_channels(Channels<VEC>& ch, int v, int n, int C, int G,
+                                             const float* gamma, const float* beta,
+                                             const float* film, const float* s_mean,
+                                             const float* s_rstd) {
+  const int g = v * VEC / (C / G);
+  const float* f = film ? film + (long long)n * 2 * C : nullptr;
+  ch.r = s_rstd[g];
+  ch.mr = -s_mean[g] * ch.r;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    const int c = v * VEC + k;
+    ch.g[k] = gamma[c];
+    ch.be[k] = beta[c];
+    ch.t1[k] = f ? f[c] : 1.f;
+    ch.fb[k] = f ? f[C + c] : 0.f;
+  }
+  return g;
+}
+
+// gz of one element from xhat and gy, at the plain composition's rounding
+// points in T (the fast exponential and reciprocal; z << 0: sigmoid 0,
+// gz 0).
+template <typename T>
+__device__ __forceinline__ float silu_grad(float xh, float gy, float g, float be, float t1,
+                                          float fb, bool film) {
+  const float a = rnd<T>(fmaf(xh, g, be));
+  const float z = film ? rnd<T>(rnd<T>(a * t1) + fb) : a;
+  const float sg = rnd<T>(__fdividef(1.f, 1.f + __expf(-z)));
+  return rnd<T>(rnd<T>(gy * sg) + rnd<T>(rnd<T>(rnd<T>(gy * z) * rnd<T>(1.f - sg)) * sg));
+}
+
+// Pass 3. Launch shape and row walk of gn_norm. sums: [N, gridDim.x, 2, C].
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kNormThreads, 1)
+gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                     const float* __restrict__ part, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, const float* __restrict__ film,
+                     float* __restrict__ sums, int HW, int C, int G, int S, float eps) {
+  __shared__ float s_mean[kMaxGroups];
+  __shared__ float s_rstd[kMaxGroups];
+  __shared__ float s_red[2 * kNormThreads * VEC];  // [2][bdy][bdx*VEC]
+  const int n = blockIdx.z;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool owner = v * VEC < C;
+  merge_stats(part, n, G, S, eps, s_mean, s_rstd);
+
+  using Raw = typename RawVec<T, VEC>::type;
+  float s1[VEC], s2[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) s1[k] = s2[k] = 0.f;
+  if (owner) {
+    Channels<VEC> ch;
+    load_channels<VEC>(ch, v, n, C, G, gamma, beta, film, s_mean, s_rstd);
+    const bool fi = film != nullptr;
+    const long long step = (long long)gridDim.x * blockDim.y;
+    const long long row = C / VEC;
+    const long long base = (long long)n * HW * C + (long long)v * VEC;
+    const Raw* xs = reinterpret_cast<const Raw*>(x + base);
+    const Raw* gs = reinterpret_cast<const Raw*>(gy + base);
+    for (long long rr = (long long)blockIdx.x * blockDim.y + threadIdx.y; rr < HW; rr += 2 * step) {
+      const bool two = rr + step < HW;
+      const Raw u0 = xs[rr * row], g0 = gs[rr * row];
+      Raw u1 = {}, g1 = {};
+      if (two) {
+        u1 = xs[(rr + step) * row];
+        g1 = gs[(rr + step) * row];
+      }
+      float w0[VEC], d0[VEC], w1[VEC], d1[VEC];
+      unpack(u0, w0);
+      unpack(g0, d0);
+      unpack(u1, w1);
+      unpack(g1, d1);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xh = fmaf(w0[k], ch.r, ch.mr);
+        const float gz = silu_grad<T>(xh, d0[k], ch.g[k], ch.be[k], ch.t1[k], ch.fb[k], fi);
+        s1[k] += gz;
+        s2[k] = fmaf(gz, xh, s2[k]);
+        if (two) {
+          const float xh1 = fmaf(w1[k], ch.r, ch.mr);
+          const float gz1 = silu_grad<T>(xh1, d1[k], ch.g[k], ch.be[k], ch.t1[k], ch.fb[k], fi);
+          s1[k] += gz1;
+          s2[k] = fmaf(gz1, xh1, s2[k]);
+        }
+      }
+    }
+  }
+  // The block's rows of each channel: column j = tx*VEC + k, row ty.
+  const int width = blockDim.x * VEC, plane = blockDim.y * width;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    s_red[threadIdx.y * width + threadIdx.x * VEC + k] = s1[k];
+    s_red[plane + threadIdx.y * width + threadIdx.x * VEC + k] = s2[k];
+  }
+  __syncthreads();
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  float* out = sums + ((long long)n * gridDim.x + blockIdx.x) * 2 * C;
+  for (int j = tid; j < width; j += blockDim.x * blockDim.y) {
+    const int c = blockIdx.y * width + j;
+    if (c >= C) continue;
+    float t1 = 0.f, t2 = 0.f;
+    for (int y = 0; y < (int)blockDim.y; ++y) {
+      t1 += s_red[y * width + j];
+      t2 += s_red[plane + y * width + j];
+    }
+    out[c] = t1;
+    out[C + c] = t2;
+  }
+}
+
+// Pass 4. Launch shape and row walk of gn_norm. coef: [N, 2, G] fp32, the
+// group means A and B.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kNormThreads, 1)
+gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gy,
+                    const float* __restrict__ part, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const float* __restrict__ film,
+                    const float* __restrict__ coef, T* __restrict__ dx, int HW, int C, int G,
+                    int S, float eps) {
+  __shared__ float s_mean[kMaxGroups];
+  __shared__ float s_rstd[kMaxGroups];
+  const int n = blockIdx.z;
+  const int v = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool owner = v * VEC < C;
+  merge_stats(part, n, G, S, eps, s_mean, s_rstd);
+  if (!owner) return;
+
+  Channels<VEC> ch;
+  const int g = load_channels<VEC>(ch, v, n, C, G, gamma, beta, film, s_mean, s_rstd);
+  const bool fi = film != nullptr;
+  // dx = rstd*gamma*t1*gz + qa + qb*xhat
+  const float qa = -ch.r * coef[((long long)n * 2) * G + g];
+  const float qb = -ch.r * coef[((long long)n * 2 + 1) * G + g];
+  using Raw = typename RawVec<T, VEC>::type;
+  const long long step = (long long)gridDim.x * blockDim.y;
+  const long long row = C / VEC;
+  const long long base = (long long)n * HW * C + (long long)v * VEC;
+  const Raw* xs = reinterpret_cast<const Raw*>(x + base);
+  const Raw* gs = reinterpret_cast<const Raw*>(gy + base);
+  T* ds = dx + base;
+  for (long long rr = (long long)blockIdx.x * blockDim.y + threadIdx.y; rr < HW; rr += 2 * step) {
+    const bool two = rr + step < HW;
+    const Raw u0 = xs[rr * row], g0 = gs[rr * row];
+    Raw u1 = {}, g1 = {};
+    if (two) {
+      u1 = xs[(rr + step) * row];
+      g1 = gs[(rr + step) * row];
+    }
+    float w0[VEC], d0[VEC], w1[VEC], d1[VEC];
+    unpack(u0, w0);
+    unpack(g0, d0);
+    unpack(u1, w1);
+    unpack(g1, d1);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float kr = ch.r * ch.g[k] * ch.t1[k];
+      const float xh = fmaf(w0[k], ch.r, ch.mr);
+      const float gz = silu_grad<T>(xh, d0[k], ch.g[k], ch.be[k], ch.t1[k], ch.fb[k], fi);
+      w0[k] = fmaf(kr, gz, fmaf(qb, xh, qa));
+      const float xh1 = fmaf(w1[k], ch.r, ch.mr);
+      const float gz1 = silu_grad<T>(xh1, d1[k], ch.g[k], ch.be[k], ch.t1[k], ch.fb[k], fi);
+      w1[k] = fmaf(kr, gz1, fmaf(qb, xh1, qa));
+    }
+    store_vec<T, VEC>(ds + rr * C, w0);
+    if (two) store_vec<T, VEC>(ds + (rr + step) * C, w1);
+  }
+}
+
+}  // namespace
+
+// Both backward passes: dtype, vec (channels per thread, within one group:
+// (C/G) % vec == 0), block (bdx, bdy) and grid (grid_x row blocks, grid_c
+// channel blocks, N) as for ishape_gn_norm (from ops/hopper_kernels.py
+// gn_bwd_geometry); part [N, G, S, 3] the forward's statistics partials,
+// gamma/beta [C] fp32, film [N, 2, C] fp32 (t1 = 1 + fs, then fb) or null.
+// reduce writes sums [N, grid_x, 2, C] fp32.
+extern "C" int ishape_gn_bwd_reduce(const void* x, const void* gy, const void* part,
+                                    const void* gamma, const void* beta, const void* film,
+                                    void* sums, int dtype, int N, int HW, int C, int G, int S,
+                                    float eps, int vec, int bdx, int bdy, int grid_x, int grid_c,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || G > kMaxGroups || C % G != 0 || (C / G) % vec != 0) return (int)cudaErrorInvalidValue;
+  if (bdx < 1 || bdy < 1 || bdx * bdy > kNormThreads || bdx * bdy < 32 || grid_x < 1 ||
+      (long long)grid_c * bdx * vec < C)
+    return (int)cudaErrorInvalidValue;
+  const bool al = aligned16(x) && aligned16(gy);
+  const dim3 block(bdx, bdy), grid(grid_x, grid_c, N);
+  const float* pp = static_cast<const float*>(part);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  const float* fi = static_cast<const float*>(film);
+  float* out = static_cast<float*>(sums);
+#define ISHAPE_GN_REDUCE(T, V)                                                            \
+  gn_bwd_reduce_kernel<T, V><<<grid, block, 0, st>>>(static_cast<const T*>(x),            \
+                                                     static_cast<const T*>(gy), pp, ga, be, \
+                                                     fi, out, HW, C, G, S, eps)
+  if (dtype == 1 && vec == 8 && al)
+    ISHAPE_GN_REDUCE(__nv_bfloat16, 8);
+  else if (dtype == 1 && vec == 1)
+    ISHAPE_GN_REDUCE(__nv_bfloat16, 1);
+  else if (dtype == 0 && vec == 4 && al)
+    ISHAPE_GN_REDUCE(float, 4);
+  else if (dtype == 0 && vec == 1)
+    ISHAPE_GN_REDUCE(float, 1);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef ISHAPE_GN_REDUCE
+  return (int)cudaGetLastError();
+}
+
+// coef: [N, 2, G] fp32 (A, B); dx: x's shape and dtype.
+extern "C" int ishape_gn_bwd_apply(const void* x, const void* gy, const void* part,
+                                   const void* gamma, const void* beta, const void* film,
+                                   const void* coef, void* dx, int dtype, int N, int HW, int C,
+                                   int G, int S, float eps, int vec, int bdx, int bdy, int grid_x,
+                                   int grid_c, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || G > kMaxGroups || C % G != 0 || (C / G) % vec != 0) return (int)cudaErrorInvalidValue;
+  if (bdx < 1 || bdy < 1 || bdx * bdy > kNormThreads || bdx * bdy < 32 || grid_x < 1 ||
+      (long long)grid_c * bdx * vec < C)
+    return (int)cudaErrorInvalidValue;
+  const bool al = aligned16(x) && aligned16(gy) && aligned16(dx);
+  const dim3 block(bdx, bdy), grid(grid_x, grid_c, N);
+  const float* pp = static_cast<const float*>(part);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  const float* fi = static_cast<const float*>(film);
+  const float* co = static_cast<const float*>(coef);
+#define ISHAPE_GN_APPLY(T, V)                                                                    \
+  gn_bwd_apply_kernel<T, V><<<grid, block, 0, st>>>(static_cast<const T*>(x),                    \
+                                                    static_cast<const T*>(gy), pp, ga, be, fi, co, \
+                                                    static_cast<T*>(dx), HW, C, G, S, eps)
+  if (dtype == 1 && vec == 8 && al)
+    ISHAPE_GN_APPLY(__nv_bfloat16, 8);
+  else if (dtype == 1 && vec == 1)
+    ISHAPE_GN_APPLY(__nv_bfloat16, 1);
+  else if (dtype == 0 && vec == 4 && al)
+    ISHAPE_GN_APPLY(float, 4);
+  else if (dtype == 0 && vec == 1)
+    ISHAPE_GN_APPLY(float, 1);
+  else
+    return (int)cudaErrorInvalidValue;
+#undef ISHAPE_GN_APPLY
+  return (int)cudaGetLastError();
+}

@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels for the UNet's two fused hot ops, their plain
-PyTorch versions, ``torch.autograd.Function`` wrappers and launch counters.
+"""Hand-written Hopper kernels for the UNet's two fused hot ops, forward and
+backward, their plain PyTorch versions, ``torch.autograd.Function`` wrappers
+and launch counters.
 
-Two ops, four kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
+Two ops, eight kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 
 - ``groupnorm_silu`` (``csrc/groupnorm_silu.cu``, two launches: ``gn_stats``
   and ``gn_norm``): GroupNorm with fp32 statistics + optional FiLM
@@ -18,17 +19,26 @@ Two ops, four kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
   the generic ``mma.sync`` kernel (``csrc/attention_generic.cu``: bf16
   tensor cores, fp32 as 3xTF32; counted as ``attention_generic``). Replaces
   ``ishapediting_tpu/ops/pallas_kernels.py::attention_qkv``.
+- The backward halves of both (in place of the JAX package's VJPs
+  ``_gn_silu_bwd`` and ``_attn_bwd``; the kernels emulate eager PyTorch's
+  differentiation of the port's plain composition on the card): the
+  GroupNorm-SiLU backward in two launches, ``gn_bwd_reduce`` (per-channel
+  sums of the cotangent through SiLU, FiLM and the affine) and
+  ``gn_bwd_apply`` (dx), beside the forward in ``csrc/groupnorm_silu.cu``;
+  the attention backward in two, ``attn_bwd_dq`` and ``attn_bwd_dkdv``
+  (``csrc/attention_bwd.cu``, every dtype and head dim the forward takes).
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. The kernels build at
-first use with nvcc into ``build/kernels/`` (one ``nvcc -c`` per source,
-started together, then one link) and bind through ctypes. Backward passes
-recompute through the plain versions, as the JAX package's ``custom_vjp``
-does. ``LAUNCHES`` counts each kernel launch, so that a run can show it went
+version (the backward: autograd through the plain composition, as the JAX
+package's VJPs); a CUDA tensor launches the kernel or raises. The kernels
+build at first use with nvcc into ``build/kernels/`` (one ``nvcc -c`` per
+source, started together, then one link) and bind through ctypes.
+``LAUNCHES`` counts each kernel launch, so that a run can show it went
 through the kernels; ``record_launches`` also lists each launch's shape and
 the bytes and operations its bound counts. Launch shapes are computed here
 (``gn_stats_geometry``, ``gn_norm_geometry``, ``attention_geometry``,
-``attention_generic_geometry``) and passed to the C entry points.
+``attention_generic_geometry``, ``attention_bwd_geometry``) and passed to
+the C entry points.
 """
 
 from __future__ import annotations
@@ -50,11 +60,12 @@ from ishapediting_tpu_torch.ops.nn import effective_groups, group_norm, silu
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("groupnorm_silu.cu", "attention.cu", "attention_generic.cu")
+SOURCES = ("groupnorm_silu.cu", "attention.cu", "attention_generic.cu", "attention_bwd.cu")
 LIB_NAME = "libishape_kernels.so"
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-LAUNCHES: Dict[str, int] = {"gn_stats": 0, "gn_norm": 0, "attention": 0, "attention_generic": 0}
+LAUNCHES: Dict[str, int] = {"gn_stats": 0, "gn_norm": 0, "attention": 0, "attention_generic": 0,
+                            "gn_bwd_reduce": 0, "gn_bwd_apply": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -179,6 +190,14 @@ def _load() -> ctypes.CDLL:
             lib.ishape_attention_generic.restype = i
             lib.ishape_attention_generic_smem.argtypes = [i, i]
             lib.ishape_attention_generic_smem.restype = i
+            lib.ishape_gn_bwd_reduce.argtypes = [p] * 7 + [i] * 6 + [f] + [i] * 5 + [p]
+            lib.ishape_gn_bwd_reduce.restype = i
+            lib.ishape_gn_bwd_apply.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 5 + [p]
+            lib.ishape_gn_bwd_apply.restype = i
+            lib.ishape_attn_bwd_dq.argtypes = [p] * 6 + [i] * 6 + [p]
+            lib.ishape_attn_bwd_dq.restype = i
+            lib.ishape_attn_bwd_dkdv.argtypes = [p] * 5 + [i] * 6 + [p]
+            lib.ishape_attn_bwd_dkdv.restype = i
             lib.ishape_error_string.argtypes = [i]
             lib.ishape_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -353,18 +372,25 @@ def gn_norm_plain(x, part, scale, bias, eps=1e-5, film=None):
     one cast to x's dtype at the end."""
     n, h, w, c = x.shape
     g = part.shape[1]
-    count, mean, m2 = part.unbind(-1)
-    total = count.sum(-1)
-    mu = (count * mean).sum(-1) / total
-    var = (m2.sum(-1) + (count * (mean - mu[..., None]).square()).sum(-1)) / total
+    mu, rstd = merge_partials(part, eps)
     xg = x.float().reshape(n, h, w, g, c // g)
-    y = (xg - mu[:, None, None, :, None]) * torch.rsqrt(var + eps)[:, None, None, :, None]
+    y = (xg - mu[:, None, None, :, None]) * rstd[:, None, None, :, None]
     y = y.reshape(n, h, w, c) * scale.float() + bias.float()
     if film is not None:
         fs = film[0].float().reshape(n, 1, 1, c)
         fb = film[1].float().reshape(n, 1, 1, c)
         y = y * (1 + fs) + fb
     return silu(y).to(x.dtype)
+
+
+def merge_partials(part: torch.Tensor, eps: float = 1e-5):
+    """(mean, rstd), each [N, G], of the partials [N, G, S, 3] of
+    ``gn_stats``: Chan's merge of (count, mean, M2), rstd = 1/sqrt(var + eps)."""
+    count, mean, m2 = part.unbind(-1)
+    total = count.sum(-1)
+    mu = (count * mean).sum(-1) / total
+    var = (m2.sum(-1) + (count * (mean - mu[..., None]).square()).sum(-1)) / total
+    return mu, torch.rsqrt(var + eps)
 
 
 def gn_stats_cuda(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -399,16 +425,7 @@ def gn_norm_cuda(x, part, scale, bias, eps=1e-5, film=None):
     if part.ndim != 4 or part.shape[0] != n or part.shape[3] != 3 or c % part.shape[1]:
         raise ValueError(f"part {tuple(part.shape)} does not fit x {tuple(x.shape)}")
     g, s = part.shape[1], part.shape[2]
-    gamma = scale.detach().float().reshape(c).contiguous()
-    beta = bias.detach().float().reshape(c).contiguous()
-    film_t = None
-    if film is not None:
-        film_t = torch.stack(
-            [film[0].detach().reshape(n, c), film[1].detach().reshape(n, c)], dim=1
-        ).float().contiguous()  # [N, 2, C], scale row first
-    for name, t in (("part", part), ("scale", gamma), ("bias", beta), ("film", film_t)):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    gamma, beta, film_t = _gn_params(x, part, scale, bias, film)
     y = torch.empty_like(x)
     geo = gn_norm_geometry(n, h * w, c, gn_vec(x, y))
     lib = _load()
@@ -422,36 +439,249 @@ def gn_norm_cuda(x, part, scale, bias, eps=1e-5, film=None):
     return y
 
 
+def _gn_params(x, part, scale, bias, film, backward=False):
+    """gamma, beta [C] and the FiLM terms [N, 2, C] (None without FiLM) as
+    the kernels read them: fp32, contiguous, on x's card. The forward reads
+    (fs, fb), the backward (1 + fs, fb) (``_gn_bwd_film``)."""
+    n, c = x.shape[0], x.shape[-1]
+    gamma = scale.detach().float().reshape(c).contiguous()
+    beta = bias.detach().float().reshape(c).contiguous()
+    film_t = None
+    if film is not None:
+        film_t = _gn_bwd_film(film, n, c) if backward else torch.stack(
+            [film[0].detach().reshape(n, c), film[1].detach().reshape(n, c)], dim=1).float()
+        film_t = film_t.contiguous()
+    for name, t in (("part", part), ("scale", gamma), ("bias", beta), ("film", film_t)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    return gamma, beta, film_t
+
+
 def groupnorm_silu_cuda(x, scale, bias, num_groups=32, eps=1e-5, film=None):
     """Both GroupNorm-SiLU kernels on x [N, H, W, C] (contiguous, bf16 or
-    fp32): statistics, then merge and normalize."""
+    fp32): statistics, then merge and normalize. Returns (y, the
+    statistics' partials), which the backward kernels read."""
     _require_cuda(x, "x", tuple(_GN_DTYPES))
     part = gn_stats_cuda(x, effective_groups(x.shape[-1], num_groups))
     y = gn_norm_cuda(x, part, scale, bias, eps, film)
     n, c = x.shape[0], x.shape[-1]
     _record("gn_norm", x, _nbytes(x, y, part) + 4 * (2 * c + (0 if film is None else 2 * n * c)),
             fp32_flops=12 * x.numel())
-    return y
+    return y, part
+
+
+# The backward. With a = xhat*gamma + beta, z = a*t1 + fb the SiLU's input
+# (t1 = 1 + fs), gz = gy*sigmoid(z)*(1 + z*(1 - sigmoid(z))) and, per (n, c),
+# S1 = sum_hw gz, S2 = sum_hw gz*xhat: dfb = S1, dfs = gamma*S2 + beta*S1,
+# dbeta = sum_n t1*S1, dgamma = sum_n t1*S2, and with A, B the group means
+# of k*gz and k*gz*xhat (k = gamma*t1), dx = rstd*(k*gz - A - xhat*B).
+# gz is evaluated at the rounding points in x's dtype of eager PyTorch's
+# backward of the port's plain composition (``groupnorm_silu_plain``) on the
+# card (a, a*t1, z, sigmoid(z), each product, 1 - sigmoid(z) and the sum:
+# PyTorch's CUDA bf16 sigmoid backward rounds after each op; t1 = 1 + fs in
+# fs's dtype; nothing rounds in fp32), the reference of chip_smoke.py's
+# gradient gate. The JAX package's VJP rounds elsewhere: it differentiates
+# ``_gn_silu_reference``, which forms a*(1 + fs) + fb in fp32 and rounds
+# once. gn_bwd_reduce writes
+# S1, S2 as partials over row blocks, gn_bwd_apply writes dx; the [N, C]
+# arithmetic between them is gn_bwd_coefficients, a few torch ops.
+
+
+def gn_bwd_geometry(x: torch.Tensor, groups: int, *ts: torch.Tensor) -> dict:
+    """Launch shape of ``gn_bwd_reduce`` and ``gn_bwd_apply`` on x and the
+    tensors ``ts`` it reads or writes beside it: that of ``gn_norm``, a
+    thread per channel vector walking rows with a grid stride, with 16-byte
+    vectors only where they lie in one group and the pointers allow (else
+    one channel per thread). Row block bx of the reduce writes partial bx,
+    so there are grid_x partials per (sample, channel)."""
+    n, h, w, c = x.shape
+    vec = _GN_VEC[x.dtype]
+    if (c // groups) % vec or any(t.data_ptr() % 16 for t in (x, *ts)):
+        vec = 1
+    return gn_norm_geometry(n, h * w, c, vec)
+
+
+def gn_bwd_reduce_plain(x, part, gy, scale, bias, eps=1e-5, film=None):
+    """Plain version of ``gn_bwd_reduce``: fp32 (S1, S2) per (sample, row
+    block, channel) as [N, S, 2, C], the rows split as the kernel splits
+    them (row r to block (r mod row_step) // bdy, ``gn_bwd_geometry``)."""
+    n, h, w, c = x.shape
+    geo = gn_bwd_geometry(x, part.shape[1], gy)
+    gz, xhat = _gn_bwd_terms(x, part, gy, scale, bias, eps, film)
+    hw = h * w
+    split = (torch.arange(hw, device=x.device) % geo["row_step"]) // geo["block"][1]
+    terms = torch.stack([gz, gz * xhat], dim=3).reshape(n, hw, 2, c)
+    sums = torch.zeros((n, geo["grid"][0], 2, c), dtype=torch.float32, device=x.device)
+    return sums.index_add_(1, split, terms)
+
+
+def _gn_bwd_terms(x, part, gy, scale, bias, eps, film):
+    """gz (the cotangent at the SiLU's input, at the rounding points of
+    eager PyTorch's backward of the plain composition on the card) and
+    xhat, each [N, H, W, C] fp32, from the merged partials."""
+    n, h, w, c = x.shape
+    g = part.shape[1]
+    rnd = lambda t: t.to(x.dtype).float()  # noqa: E731
+    mu, rstd = (t.repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c) for t in merge_partials(part, eps))
+    xhat = (x.float() - mu) * rstd
+    z = rnd(xhat * scale.float().reshape(c) + bias.float().reshape(c))
+    if film is not None:
+        t1, fb = (t.reshape(n, 1, 1, c) for t in _gn_bwd_film(film, n, c).unbind(1))
+        z = rnd(rnd(z * t1) + fb)
+    sg = rnd(torch.sigmoid(z))
+    gy = gy.float()
+    return rnd(rnd(gy * sg) + rnd(rnd(rnd(gy * z) * rnd(1 - sg)) * sg)), xhat
+
+
+def _gn_bwd_film(film, n, c):
+    """The FiLM terms the backward kernels read: [N, 2, C] fp32 of
+    t1 = 1 + fs (formed in fs's dtype, as the plain composition forms it)
+    and fb."""
+    return torch.stack([(1 + film[0].detach()).reshape(n, c), film[1].detach().reshape(n, c)], 1).float()
+
+
+def gn_bwd_coefficients(sums, scale, bias, hw, groups, film=None):
+    """The [N, C] arithmetic between the two backward kernels, from the
+    reduce's partials [N, S, 2, C]: (coef [N, 2, G] = the group means A, B
+    that ``gn_bwd_apply`` reads, dscale [C], dbias [C], dfs [N, C], dfb
+    [N, C]), fp32; dfs and dfb None without FiLM."""
+    n, c = sums.shape[0], sums.shape[-1]
+    s1, s2 = sums.sum(1).unbind(1)
+    gamma, beta = scale.float().reshape(c), bias.float().reshape(c)
+    f1 = None if film is None else _gn_bwd_film(film, n, c)[:, 0]
+    k = gamma if f1 is None else gamma * f1
+    coef = torch.stack([k * s1, k * s2], 1).reshape(n, 2, groups, c // groups).sum(-1) / (hw * (c // groups))
+    w1, w2 = (s1, s2) if f1 is None else (f1 * s1, f1 * s2)
+    dfs = dfb = None
+    if film is not None:
+        dfs, dfb = gamma * s2 + beta * s1, s1
+    return coef.contiguous(), w2.sum(0), w1.sum(0), dfs, dfb
+
+
+def gn_bwd_apply_plain(x, part, gy, coef, scale, bias, eps=1e-5, film=None):
+    """Plain version of ``gn_bwd_apply``: dx = rstd*(k*gz - A - xhat*B) in
+    fp32, cast once to x's dtype."""
+    n, h, w, c = x.shape
+    g = part.shape[1]
+    gz, xhat = _gn_bwd_terms(x, part, gy, scale, bias, eps, film)
+    rstd = merge_partials(part, eps)[1].repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c)
+    k = scale.float().reshape(c)
+    if film is not None:
+        k = k * _gn_bwd_film(film, n, c)[:, 0].reshape(n, 1, 1, c)
+    a, b = (t.repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c) for t in coef.unbind(1))
+    return (rstd * (k * gz - a - xhat * b)).to(x.dtype)
+
+
+def _like(grad, t):
+    """A gradient in the dtype and shape of its input ``t``."""
+    return None if grad is None or t is None else grad.to(t.dtype).reshape(t.shape)
+
+
+def gn_silu_bwd_plain(x, part, gy, scale, bias, eps=1e-5, film=None):
+    """The backward of ``groupnorm_silu`` in closed form, with the kernels'
+    partials: (dx, dscale, dbias, dfs, dfb), each in its input's dtype and
+    shape (dfs, dfb None without FiLM). ``part``: the forward's statistics
+    partials [N, G, S, 3]."""
+    n, h, w, c = x.shape
+    sums = gn_bwd_reduce_plain(x, part, gy, scale, bias, eps, film)
+    coef, dscale, dbias, dfs, dfb = gn_bwd_coefficients(sums, scale, bias, h * w, part.shape[1], film)
+    dx = gn_bwd_apply_plain(x, part, gy, coef, scale, bias, eps, film)
+    fs, fb = (None, None) if film is None else film
+    return dx, _like(dscale, scale), _like(dbias, bias), _like(dfs, fs), _like(dfb, fb)
+
+
+def gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps=1e-5, film=None):
+    """Launch ``gn_bwd_reduce`` on x and its cotangent gy (both [N, H, W, C],
+    contiguous, x's dtype) with the forward's partials ``part``. Returns the
+    fp32 (S1, S2) partials [N, S, 2, C] of ``gn_bwd_reduce_plain``."""
+    _require_cuda(x, "x", tuple(_GN_DTYPES))
+    _require_cuda(gy, "gy", (x.dtype,))
+    _require_cuda(part, "part", (torch.float32,))
+    if x.ndim != 4 or gy.shape != x.shape:
+        raise ValueError(f"x {tuple(x.shape)} and gy {tuple(gy.shape)} must be one [N, H, W, C] shape")
+    n, h, w, c = x.shape
+    g, s = part.shape[1], part.shape[2]
+    gamma, beta, film_t = _gn_params(x, part, scale, bias, film, backward=True)
+    geo = gn_bwd_geometry(x, g, gy)
+    sums = torch.empty((n, geo["grid"][0], 2, c), dtype=torch.float32, device=x.device)
+    lib = _load()
+    _check(lib, lib.ishape_gn_bwd_reduce(
+        x.data_ptr(), gy.data_ptr(), part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        0 if film_t is None else film_t.data_ptr(), sums.data_ptr(), _GN_DTYPES[x.dtype], n, h * w, c,
+        g, s, float(eps), geo["vec"], *geo["block"], *geo["grid"][:2], _stream(x),
+    ), "gn_bwd_reduce")
+    LAUNCHES["gn_bwd_reduce"] += 1
+    _record("gn_bwd_reduce", x, _nbytes(x, gy, part, gamma, beta, film_t, sums), fp32_flops=16 * x.numel())
+    return sums
+
+
+def gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, eps=1e-5, film=None):
+    """Launch ``gn_bwd_apply``: dx in x's dtype from x, gy, the forward's
+    partials and the group means ``coef`` [N, 2, G] of
+    ``gn_bwd_coefficients``."""
+    _require_cuda(x, "x", tuple(_GN_DTYPES))
+    _require_cuda(gy, "gy", (x.dtype,))
+    _require_cuda(part, "part", (torch.float32,))
+    _require_cuda(coef, "coef", (torch.float32,))
+    n, h, w, c = x.shape
+    g, s = part.shape[1], part.shape[2]
+    if gy.shape != x.shape or coef.shape != (n, 2, g):
+        raise ValueError(f"gy {tuple(gy.shape)} or coef {tuple(coef.shape)} does not fit x {tuple(x.shape)}")
+    gamma, beta, film_t = _gn_params(x, part, scale, bias, film, backward=True)
+    dx = torch.empty_like(x)
+    geo = gn_bwd_geometry(x, g, gy, dx)
+    lib = _load()
+    _check(lib, lib.ishape_gn_bwd_apply(
+        x.data_ptr(), gy.data_ptr(), part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        0 if film_t is None else film_t.data_ptr(), coef.data_ptr(), dx.data_ptr(), _GN_DTYPES[x.dtype],
+        n, h * w, c, g, s, float(eps), geo["vec"], *geo["block"], *geo["grid"][:2], _stream(x),
+    ), "gn_bwd_apply")
+    LAUNCHES["gn_bwd_apply"] += 1
+    _record("gn_bwd_apply", x, _nbytes(x, gy, dx, part, coef, gamma, beta, film_t), fp32_flops=18 * x.numel())
+    return dx
+
+
+def gn_silu_bwd_cuda(x, part, gy, scale, bias, eps=1e-5, film=None, need_dx=True):
+    """Both backward kernels: ``gn_bwd_reduce``, the [N, C] arithmetic, then
+    ``gn_bwd_apply`` (only with ``need_dx``). Returns what
+    ``gn_silu_bwd_plain`` returns (dx None without ``need_dx``)."""
+    gy = gy.to(x.dtype).contiguous()
+    n, h, w, c = x.shape
+    sums = gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps, film)
+    coef, dscale, dbias, dfs, dfb = gn_bwd_coefficients(sums, scale, bias, h * w, part.shape[1], film)
+    dx = gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, eps, film) if need_dx else None
+    fs, fb = (None, None) if film is None else film
+    return dx, _like(dscale, scale), _like(dbias, bias), _like(dfs, fs), _like(dfb, fb)
 
 
 class GroupNormSiLU(torch.autograd.Function):
-    """Forward: the kernel on CUDA, the plain version on the CPU. Backward:
-    recompute through the plain version (no backward kernel, as in JAX)."""
+    """Forward: the kernels on CUDA, the plain version on the CPU. Backward:
+    on CUDA the backward kernels (``gn_silu_bwd_cuda``, reading the
+    forward's statistics partials); on the CPU autograd through the plain
+    composition, as the JAX package's VJP."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, film_scale, film_shift, num_groups, eps):
-        ctx.save_for_backward(x, scale, bias, film_scale, film_shift)
         ctx.num_groups, ctx.eps = num_groups, eps
         film = None if film_scale is None else (film_scale, film_shift)
         if x.is_cuda:
-            return groupnorm_silu_cuda(x, scale, bias, num_groups, eps, film)
+            y, part = groupnorm_silu_cuda(x, scale, bias, num_groups, eps, film)
+            ctx.save_for_backward(x, scale, bias, film_scale, film_shift, part)
+            return y
+        ctx.save_for_backward(x, scale, bias, film_scale, film_shift, None)
         return groupnorm_silu_plain(x, scale, bias, num_groups, eps, film)
 
     @staticmethod
     def backward(ctx, gy):
-        saved = ctx.saved_tensors
+        *saved, part = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        if part is not None:
+            x, scale, bias, fs, fb = saved
+            grads = gn_silu_bwd_cuda(x, part, gy, scale, bias, ctx.eps,
+                                     None if fs is None else (fs, fb), need_dx=need[0])
+            return (*(g if need[i] else None for i, g in enumerate(grads)), None, None)
         inputs = [
-            None if t is None else t.detach().requires_grad_(ctx.needs_input_grad[i])
+            None if t is None else t.detach().requires_grad_(need[i])
             for i, t in enumerate(saved)
         ]
         x, scale, bias, fs, fb = inputs
@@ -627,21 +857,192 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return out
 
 
+# The backward, with s = ch^-1/4 on both q and k: P = softmax((sQ)(sK)^T),
+# D = rowsum(dO * O), dV = P^T dO, dS = P * (dO V^T - D), dQ = s dS (sK),
+# dK = s dS^T (sQ), at the dense composition's rounding points in qkv's
+# dtype (sQ, sK, the logits and dO V^T rounded to it; P and dS rounded to it
+# as product operands; nothing rounds in fp32), as eager PyTorch
+# differentiates ``dense_qkv_attention`` on the card, the reference of
+# chip_smoke.py's gradient gate. attn_bwd_dq (a CTA per query tile) sweeps
+# the keys twice:
+# the rows' log-sum-exp, then dQ; it writes the log-sum-exp and D to an fp32
+# workspace [N, H, T]. attn_bwd_dkdv (a CTA per key tile) sweeps the query
+# tiles, rebuilds P from the log-sum-exp, and sums dK and dV. Both write
+# into dqkv in qkv's [N, T, H*3*ch] layout.
+
+_ATTN_BWD_ROWS = 64  # rows of a CTA's own tile, and of each tile it sweeps
+_ATTN_BWD_CHUNK = 64  # channels per chunk of the logit products
+
+
+def attention_bwd_geometry(n: int, t: int, heads: int, ch: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Launch shape of both attention backward kernels
+    (``csrc/attention_bwd.cu``): 128 threads (four warps of 16 rows); grid
+    (tiles of 64 rows: queries for ``attn_bwd_dq``, keys for
+    ``attn_bwd_dkdv``, n*heads, output slices). Each CTA holds the gradient
+    of ``out_cols`` output channels (16, 32 or 64; slices of 64 past 64
+    channels, each recomputing the logits over every chunk of 64 channels).
+    Shared memory: four tiles [64][64 + 16 bytes of padding] of qkv's dtype;
+    fp32 also a [16][68] fp32 scratch per warp; ``attn_bwd_dkdv`` also the
+    swept tile's log-sum-exp and D."""
+    if ch < 1:
+        raise ValueError(f"head dim {ch} not supported (kernels take any ch >= 1)")
+    if dtype not in _ATTN_DTYPES:
+        raise TypeError(f"qkv: dtype {dtype} not supported (want {tuple(_ATTN_DTYPES)})")
+    out_cols = 16 if ch <= 16 else 32 if ch <= 32 else 64
+    elt, pad = (4, 4) if dtype == torch.float32 else (2, 8)
+    smem = 4 * _ATTN_BWD_ROWS * (_ATTN_BWD_CHUNK + pad) * elt
+    if dtype == torch.float32:
+        smem += 4 * 16 * (_ATTN_BWD_ROWS + 4) * 4
+    return dict(threads=128, grid=(-(-t // _ATTN_BWD_ROWS), n * heads, -(-ch // out_cols)),
+                out_cols=out_cols, chunks=-(-ch // _ATTN_BWD_CHUNK), smem_dq=smem,
+                smem_dkdv=smem + 2 * _ATTN_BWD_ROWS * 4)
+
+
+def _attn_heads(t: torch.Tensor, num_heads: int, parts: int):
+    """[N, T, H*parts*ch] as ``parts`` fp32 tensors [N, T, H, ch]."""
+    n, tt, width = t.shape
+    ch = width // (parts * num_heads)
+    return t.float().reshape(n, tt, num_heads, parts, ch).unbind(3)
+
+
+def _attn_bwd_terms(qkv, gout, num_heads):
+    """(sQ, sK, the logits, dP = dO V^T, s, x -> x rounded to qkv's dtype),
+    fp32, at the rounding points of eager PyTorch's backward of the dense
+    composition on the card."""
+    q, k, v = _attn_heads(qkv, num_heads, 3)
+    (do,) = _attn_heads(gout, num_heads, 1)
+    rnd = lambda t: t.to(qkv.dtype).float()  # noqa: E731
+    s = q.shape[-1] ** -0.25
+    qs, ks = rnd(q * s), rnd(k * s)
+    logits = rnd(torch.einsum("nthc,nshc->nhts", qs, ks))
+    return qs, ks, logits, rnd(torch.einsum("nthc,nshc->nhts", do, v)), s, rnd
+
+
+def attn_bwd_dq_plain(qkv, out, gout, num_heads):
+    """Plain version of ``attn_bwd_dq``: (dQ [N, T, H, ch], log-sum-exp
+    [N, H, T], D [N, H, T]), fp32, ``out`` the forward's output."""
+    qs, ks, logits, dp, s, rnd = _attn_bwd_terms(qkv, gout, num_heads)
+    (o,), (do,) = _attn_heads(out, num_heads, 1), _attn_heads(gout, num_heads, 1)
+    lse = torch.logsumexp(logits, dim=-1)
+    d = (do * o).sum(-1).transpose(1, 2)
+    ds = rnd(torch.exp(logits - lse[..., None]) * (dp - d[..., None]))
+    return torch.einsum("nhts,nshc->nthc", ds, ks) * s, lse, d
+
+
+def attn_bwd_dkdv_plain(qkv, gout, lse, d, num_heads):
+    """Plain version of ``attn_bwd_dkdv``: (dK, dV), each [N, T, H, ch]
+    fp32, from the log-sum-exp and D of ``attn_bwd_dq``."""
+    qs, ks, logits, dp, s, rnd = _attn_bwd_terms(qkv, gout, num_heads)
+    (do,) = _attn_heads(gout, num_heads, 1)
+    p = torch.exp(logits - lse[..., None])
+    ds = rnd(p * (dp - d[..., None]))
+    return torch.einsum("nhts,nthc->nshc", ds, qs) * s, torch.einsum("nhts,nthc->nshc", rnd(p), do)
+
+
+def attention_bwd_plain(qkv, out, gout, num_heads):
+    """The backward of ``attention_qkv`` in closed form, through the
+    kernels' workspace (log-sum-exp and D): dqkv in qkv's dtype and layout."""
+    dq, lse, d = attn_bwd_dq_plain(qkv, out, gout, num_heads)
+    dk, dv = attn_bwd_dkdv_plain(qkv, gout, lse, d, num_heads)
+    return torch.stack([dq, dk, dv], dim=3).reshape(qkv.shape).to(qkv.dtype)
+
+
+def _attn_bwd_check(qkv, gout, num_heads):
+    _require_cuda(qkv, "qkv", tuple(_ATTN_DTYPES))
+    _require_cuda(gout, "gout", (qkv.dtype,))
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not [N, T, {num_heads}*3*ch]")
+    n, t, width = qkv.shape
+    if gout.shape != (n, t, width // 3):
+        raise ValueError(f"gout {tuple(gout.shape)} does not fit qkv {tuple(qkv.shape)}")
+    ch = width // (3 * num_heads)
+    return n, t, ch, attention_bwd_geometry(n, t, num_heads, ch, qkv.dtype)
+
+
+def _attn_bwd_flops(qkv, n, t, heads, ch, products):
+    """The bound's work: ``products`` T^2*ch products (on the bf16 tensor
+    cores, or the FMA units in fp32) and about 8 fp32 operations per logit.
+    dQ's function needs three (S, dP, dQ; the kernel's second sweep for the
+    log-sum-exp is its own choice), dK and dV's four (S, dP, dV, dK)."""
+    products, elementwise = 2.0 * products * n * heads * t * t * ch, 8.0 * n * heads * t * t
+    if qkv.dtype == torch.bfloat16:
+        return dict(tensor_flops=products, fp32_flops=elementwise)
+    return dict(fp32_flops=products + elementwise)
+
+
+def attn_bwd_dq_cuda(qkv, out, gout, num_heads, dqkv):
+    """Launch ``attn_bwd_dq``: writes dQ into the q columns of ``dqkv``
+    (qkv's shape and dtype) and returns the fp32 (log-sum-exp, D), each
+    [N, H, T]. qkv, out and gout contiguous, of one dtype."""
+    n, t, ch, geo = _attn_bwd_check(qkv, gout, num_heads)
+    _require_cuda(out, "out", (qkv.dtype,))
+    _require_cuda(dqkv, "dqkv", (qkv.dtype,))
+    if out.shape != gout.shape or dqkv.shape != qkv.shape:
+        raise ValueError(f"out {tuple(out.shape)} or dqkv {tuple(dqkv.shape)} does not fit qkv")
+    lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=qkv.device)
+    d = torch.empty_like(lse)
+    lib = _load()
+    _check(lib, lib.ishape_attn_bwd_dq(
+        qkv.data_ptr(), out.data_ptr(), gout.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), d.data_ptr(),
+        _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch, geo["out_cols"], _stream(qkv),
+    ), "attn_bwd_dq")
+    LAUNCHES["attn_bwd_dq"] += 1
+    _record("attn_bwd_dq", qkv, _nbytes(qkv, out, gout, lse, d) + _nbytes(dqkv) // 3,
+            **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=3))
+    return lse, d
+
+
+def attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv):
+    """Launch ``attn_bwd_dkdv``: writes dK and dV into the k and v columns
+    of ``dqkv`` from the workspace of ``attn_bwd_dq_cuda``."""
+    n, t, ch, geo = _attn_bwd_check(qkv, gout, num_heads)
+    _require_cuda(dqkv, "dqkv", (qkv.dtype,))
+    for name, w in (("lse", lse), ("d", d)):
+        _require_cuda(w, name, (torch.float32,))
+        if w.shape != (n, num_heads, t):
+            raise ValueError(f"{name} {tuple(w.shape)} is not [{n}, {num_heads}, {t}]")
+    if dqkv.shape != qkv.shape:
+        raise ValueError(f"dqkv {tuple(dqkv.shape)} does not fit qkv {tuple(qkv.shape)}")
+    lib = _load()
+    _check(lib, lib.ishape_attn_bwd_dkdv(
+        qkv.data_ptr(), gout.data_ptr(), lse.data_ptr(), d.data_ptr(), dqkv.data_ptr(),
+        _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch, geo["out_cols"], _stream(qkv),
+    ), "attn_bwd_dkdv")
+    LAUNCHES["attn_bwd_dkdv"] += 1
+    _record("attn_bwd_dkdv", qkv, _nbytes(qkv, gout, lse, d) + 2 * _nbytes(dqkv) // 3,
+            **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=4))
+
+
+def attention_bwd_cuda(qkv, out, gout, num_heads):
+    """Both attention backward kernels: dqkv in qkv's dtype and layout."""
+    gout = gout.to(qkv.dtype).contiguous()
+    dqkv = torch.empty_like(qkv)
+    lse, d = attn_bwd_dq_cuda(qkv, out, gout, num_heads, dqkv)
+    attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv)
+    return dqkv
+
+
 class QKVAttention(torch.autograd.Function):
     """Forward: the kernel on CUDA, ``dense_qkv_attention`` on the CPU.
-    Backward: recompute through ``dense_qkv_attention``."""
+    Backward: on CUDA the backward kernels (``attention_bwd_cuda``, reading
+    the forward's output); on the CPU autograd through
+    ``dense_qkv_attention``, as the JAX package's VJP."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads):
-        ctx.save_for_backward(qkv)
         ctx.num_heads = num_heads
         if qkv.is_cuda:
-            return attention_qkv_cuda(qkv, num_heads)
+            out = attention_qkv_cuda(qkv, num_heads)
+            ctx.save_for_backward(qkv, out)
+            return out
+        ctx.save_for_backward(qkv, None)
         return dense_qkv_attention(qkv, num_heads)
 
     @staticmethod
     def backward(ctx, gout):
-        (qkv,) = ctx.saved_tensors
+        qkv, out = ctx.saved_tensors
+        if out is not None:
+            return attention_bwd_cuda(qkv, out, gout, ctx.num_heads), None
         qkv = qkv.detach().requires_grad_(True)
         with torch.enable_grad():
             out = dense_qkv_attention(qkv, ctx.num_heads)

@@ -10,15 +10,16 @@ a ``torch.profiler`` table of device time by kernel name over a few
 forwards, on random weights from a seed. Prints the card's name and power
 limit first. ``--drag`` does the same for one drag step at batch 1
 (``edit/drag.py::make_drag_step``: the forward with its feature tap, the
-drag losses and ``torch.autograd.grad`` through the whole UNet, whose
-GroupNorm-SiLU and attention backward recompute the plain versions).
+drag losses and ``torch.autograd.grad`` through the UNet, whose
+GroupNorm-SiLU and attention backward launch the backward kernels).
 ``--train`` does the same for one train step at batch 8
 (``train/trainer.py::make_train_step``: the train forward with dropout
 under remat, the losses, the backward with every block recomputed, the
-gradient clip, AdamW and the EMA), and prints the device time spent inside
+gradient clip, AdamW and the EMA). Both print the device time spent inside
 the kernels' backward nodes (``GroupNormSiLUBackward``,
-``QKVAttentionBackward``: the plain versions' recompute and its gradient)
-and their share of the step's device time.
+``QKVAttentionBackward``), their share of the call's device time, and what
+of it is not the node's backward kernels (the torch ops between them; a
+remat recompute that a node's saved tensors set off is counted in it too).
 
 The summed bound of a kernel is, over the launches of one forward as
 ``hopper_kernels.record_launches`` lists them (shapes recorded during the
@@ -35,15 +36,20 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ITERS = 5  # forwards per timing and per profile
-# autograd nodes of the kernels' Functions, whose backward recomputes the plain
-# versions; a trace names each node's call so (and its wrapper
+# autograd nodes of the kernels' Functions and the backward kernels each
+# launches; a trace names each node's call so (and its wrapper
 # "autograd::engine::evaluate_function: <node>", which holds the same kernels)
-BACKWARD_NODES = ("GroupNormSiLUBackward", "QKVAttentionBackward")
+BACKWARD_NODES = {"GroupNormSiLUBackward": ("gn_bwd_reduce", "gn_bwd_apply"),
+                  "QKVAttentionBackward": ("attn_bwd_dq", "attn_bwd_dkdv")}
 KERNELS = {  # LAUNCHES key -> the CUDA kernel's name in a profiler trace (csrc/*.cu)
     "gn_stats": "gn_stats_kernel",
     "gn_norm": "gn_norm_kernel",
     "attention": "attention_kernel",
     "attention_generic": "attention_generic_kernel",
+    "gn_bwd_reduce": "gn_bwd_reduce_kernel",
+    "gn_bwd_apply": "gn_bwd_apply_kernel",
+    "attn_bwd_dq": "attn_bwd_dq_kernel",
+    "attn_bwd_dkdv": "attn_bwd_dkdv_kernel",
 }
 
 
@@ -136,8 +142,9 @@ def main(argv=None) -> None:
                   f"summed bound {k['bound_ms']:.4f} ms")
         for node, node_ms in acc["backward_ms"].items():
             if node_ms:
+                own = sum(acc["kernels"][k]["ms"] for k in BACKWARD_NODES[node])
                 print(f"  inside {node} nodes: {node_ms:.3f} ms per call, {node_ms / busy:.1%} of "
-                      f"the device time")
+                      f"the device time; its backward kernels {own:.3f} ms, the rest {node_ms - own:.3f} ms")
         events = sorted(acc["events"], key=lambda e: -e.self_device_time_total)
         for e in events[: args.rows]:
             print(f"  {e.self_device_time_total / 1e3 / ITERS:9.3f} ms "

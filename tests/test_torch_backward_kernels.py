@@ -1,0 +1,301 @@
+"""The backward halves of the port's two kernels: their plain twins
+(``gn_silu_bwd_plain``, ``attention_bwd_plain``: the closed forms through
+the kernels' partials and workspace) against the JAX package's VJPs
+(``jax.vjp`` of ``pk.groupnorm_silu`` and ``pk.attention_qkv``, Pallas in
+interpret mode as ``tests/test_pallas_kernels.py`` runs it) and against
+autograd through the port's plain compositions; then the backward kernels
+against their twins on a card (``cuda``-marked, skipped without one).
+
+JAX is imported inside the functions that use it, so that the card cases
+run where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_backward_kernels.py --noconftest -q -m cuda
+
+Inputs come from numpy with a seed; JAX gets copies and its results are
+fetched before PyTorch runs, so the two never share host memory. Tolerances
+are relative to the largest gradient magnitude of the reference
+(``rel_err``), stated per test.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ishapediting_tpu_torch.ops import hopper_kernels as hk
+from ishapediting_tpu_torch.ops.attention import dense_qkv_attention
+from ishapediting_tpu_torch.ops.nn import effective_groups
+
+torch.set_num_threads(2)
+
+GN_SHAPES = [(2, 8, 8, 64), (1, 6, 10, 24), (1, 16, 16, 16)]  # the last: one channel per group
+# fp32: closed form against autograd, both fp32 (summation order only).
+# bf16: the references round to bf16 after the norm, the FiLM and the SiLU
+# (and JAX's cotangents in bf16), the closed form computes in fp32 and
+# rounds dx once: a few bf16 ulps of the largest gradient.
+GN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# T = 72 and 40: not multiples of the kernels' 64-row tiles; ch 320 is past
+# the 64-channel chunk (five chunks and five output slices).
+ATTN_CASES = [(2, 64, 4, 8), (1, 72, 2, 64), (1, 40, 2, 192), (1, 33, 1, 320)]
+# fp32 as above; bf16: the references round q*s, k*s, the weights and every
+# product to bf16, the closed form does not.
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want|, in fp32."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / max(float(np.abs(want).max()), 1e-12))
+
+
+def gn_inputs(seed, shape, film):
+    rng = np.random.default_rng(seed)
+    n, c = shape[0], shape[-1]
+    x = (rng.normal(size=shape) * 2 + 0.5).astype(np.float32)
+    scale = (rng.normal(size=c) * 0.1 + 1.0).astype(np.float32)
+    bias = (rng.normal(size=c) * 0.1).astype(np.float32)
+    f = tuple((rng.normal(size=(n, c)) * 0.2).astype(np.float32) for _ in range(2)) if film else None
+    gy = rng.normal(size=shape).astype(np.float32)
+    return x, scale, bias, f, gy
+
+
+def torch_gn(x, scale, bias, f, gy, dtype, device="cpu"):
+    t = lambda a, dt=dtype: torch.from_numpy(a).to(device, dt)  # noqa: E731
+    return (t(x), t(scale, torch.float32), t(bias, torch.float32),
+            None if f is None else (t(f[0]), t(f[1])), t(gy))
+
+
+def plain_gn_grads(x, scale, bias, f, gy):
+    part = hk.gn_stats_plain(x, effective_groups(x.shape[-1], 32))
+    return hk.gn_silu_bwd_plain(x, part, gy, scale, bias, film=f)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_bwd_plain_matches_jax_vjp(dtype, film, shape):
+    """dx, dscale, dbias (and dfs, dfb) against ``jax.vjp`` of
+    ``pk.groupnorm_silu`` in interpret mode, tolerance ``GN_TOL``."""
+    import jax
+    import jax.numpy as jnp
+
+    from ishapediting_tpu.ops import pallas_kernels as pk
+
+    x, scale, bias, f, gy = gn_inputs(1, shape, film)
+    n, c = shape[0], shape[-1]
+
+    def fwd(a, s, b, *film_sb):
+        film_t = tuple(t.reshape(n, 1, 1, c) for t in film_sb) or None
+        return pk.groupnorm_silu(a, s, b, film=film_t)
+
+    args = (jnp.array(x, dtype), jnp.array(scale), jnp.array(bias), *(jnp.array(a, dtype) for a in (f or ())))
+    want = [np.array(w) for w in jax.jit(lambda g, *a: jax.vjp(fwd, *a)[1](g))(jnp.array(gy, dtype), *args)]
+    got = plain_gn_grads(*torch_gn(x, scale, bias, f, gy, getattr(torch, dtype)))
+    got = [g for g in got if g is not None]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert str(g.dtype)[6:] == str(w.dtype) and tuple(g.shape) == w.shape
+        assert rel_err(g.float().numpy(), w) <= GN_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_bwd_plain_matches_autograd(dtype, film, shape):
+    """The same gradients against autograd through ``groupnorm_silu_plain``
+    (what a CPU tensor's backward runs), tolerance ``GN_TOL``."""
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(2, shape, film), getattr(torch, dtype))
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, *(f or ()))]
+    y = hk.groupnorm_silu_plain(leaves[0], leaves[1], leaves[2], film=None if f is None else tuple(leaves[3:]))
+    want = torch.autograd.grad(y, leaves, gy)
+    got = [g for g in plain_gn_grads(x, scale, bias, f, gy) if g is not None]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert rel_err(g.float().numpy(), w.float().numpy()) <= GN_TOL[dtype]
+
+
+def test_gn_bwd_reduce_plain_splits_rows_as_the_kernel():
+    """The reduce's partials: one per row block of ``gn_bwd_geometry``, each
+    summing that block's rows; together the full per-channel sums."""
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(3, (2, 16, 16, 64), True), torch.float32)
+    part = hk.gn_stats_plain(x, 32)
+    sums = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
+    geo = hk.gn_bwd_geometry(x, 32, gy)
+    assert sums.shape == (2, geo["grid"][0], 2, 64) and geo["grid"][0] > 1
+    mu, rstd = hk.merge_partials(part)
+    xhat = (x - mu.repeat_interleave(2, 1)[:, None, None]) * rstd.repeat_interleave(2, 1)[:, None, None]
+    a = (xhat * scale + bias) * (1 + f[0][:, None, None]) + f[1][:, None, None]
+    sg = torch.sigmoid(a)
+    gz = gy * sg * (1 + a * (1 - sg))
+    torch.testing.assert_close(sums.sum(1)[:, 0], gz.sum((1, 2)), atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(sums.sum(1)[:, 1], (gz * xhat).sum((1, 2)), atol=1e-4, rtol=1e-5)
+    rows = (torch.arange(256) % geo["row_step"]) // geo["block"][1]
+    block0 = rows == 0
+    torch.testing.assert_close(sums[:, 0, 0], gz.reshape(2, 256, 64)[:, block0].sum(1), atol=1e-5, rtol=1e-5)
+
+
+def attn_inputs(seed, n, t, heads, ch, dtype):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(n, t, heads * 3 * ch)).astype(np.float32)
+    gout = rng.normal(size=(n, t, heads * ch)).astype(np.float32)
+    return torch.from_numpy(qkv).to(dtype), torch.from_numpy(gout).to(dtype)
+
+
+@pytest.mark.parametrize("n,t,heads,ch", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_plain_matches_jax_vjp(dtype, n, t, heads, ch):
+    """dqkv against ``jax.vjp`` of ``pk.attention_qkv`` in interpret mode,
+    tolerance ``ATTN_TOL``; ``out`` is the forward's (the CPU route's)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ishapediting_tpu.ops import pallas_kernels as pk
+
+    qkv, gout = attn_inputs(t + ch, n, t, heads, ch, getattr(torch, dtype))
+    (want,) = jax.jit(lambda a, g: jax.vjp(lambda b: pk.attention_qkv(b, heads), a)[1](g))(
+        jnp.array(qkv.float().numpy(), dtype), jnp.array(gout.float().numpy(), dtype))
+    want = np.array(want)
+    got = hk.attention_bwd_plain(qkv, hk.attention_qkv(qkv, heads), gout, heads)
+    assert got.dtype == qkv.dtype and got.shape == qkv.shape
+    assert rel_err(got.float().numpy(), want) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("n,t,heads,ch", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_bwd_plain_matches_autograd(dtype, n, t, heads, ch):
+    """dqkv against autograd through ``dense_qkv_attention`` (what a CPU
+    tensor's backward runs), tolerance ``ATTN_TOL``."""
+    qkv, gout = attn_inputs(t * ch, n, t, heads, ch, getattr(torch, dtype))
+    leaf = qkv.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(dense_qkv_attention(leaf, heads), leaf, gout)
+    got = hk.attention_bwd_plain(qkv, dense_qkv_attention(qkv, heads), gout, heads)
+    assert rel_err(got.float().numpy(), want.float().numpy()) <= ATTN_TOL[dtype]
+
+
+def test_attention_bwd_workspace_is_logsumexp_and_d():
+    """The workspace that ``attn_bwd_dq`` hands ``attn_bwd_dkdv``: each
+    row's log-sum-exp of the scaled logits and D = rowsum(dO * O)."""
+    qkv, gout = attn_inputs(5, 1, 40, 2, 16, torch.float32)
+    out = dense_qkv_attention(qkv, 2)
+    _, lse, d = hk.attn_bwd_dq_plain(qkv, out, gout, 2)
+    q, k, _ = qkv.reshape(1, 40, 2, 3, 16).unbind(3)
+    logits = torch.einsum("nthc,nshc->nhts", q, k) / 4.0
+    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(d, (gout * out).reshape(1, 40, 2, 16).sum(-1).transpose(1, 2),
+                               atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "n,t,heads,ch,dtype,grid,out_cols,chunks",
+    [(8, 1024, 8, 64, torch.bfloat16, (16, 64, 1), 64, 1),  # chairs 32^2 level, train batch 8
+     (1, 256, 4, 192, torch.bfloat16, (4, 4, 3), 64, 3),  # heads-by-count 16^2
+     (2, 64, 4, 8, torch.float32, (1, 8, 1), 16, 1),  # the tiny preset
+     (1, 100, 1, 320, torch.float32, (2, 1, 5), 64, 5)],
+)
+def test_attention_bwd_geometry(n, t, heads, ch, dtype, grid, out_cols, chunks):
+    geo = hk.attention_bwd_geometry(n, t, heads, ch, dtype)
+    assert (geo["grid"], geo["out_cols"], geo["chunks"]) == (grid, out_cols, chunks)
+    assert geo["smem_dkdv"] <= hk.MAX_SMEM_BYTES
+
+
+def test_cpu_backward_runs_the_plain_composition_uncounted():
+    """A CPU tensor's backward is autograd through the plain composition (the
+    JAX package's VJP) and launches nothing."""
+    hk.reset_launch_counts()
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(4, (1, 6, 10, 24), True), torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, *f)]
+    got = torch.autograd.grad(hk.groupnorm_silu(leaves[0], leaves[1], leaves[2], film=tuple(leaves[3:])),
+                              leaves, gy)
+    want = torch.autograd.grad(hk.groupnorm_silu_plain(leaves[0], leaves[1], leaves[2],
+                                                       film=tuple(leaves[3:])), leaves, gy)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)
+    qkv, gout = attn_inputs(6, 1, 40, 2, 8, torch.float32)
+    leaf = qkv.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(hk.attention_qkv(leaf, 2), leaf, gout)
+    (want,) = torch.autograd.grad(dense_qkv_attention(leaf, 2), leaf, gout)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert sum(hk.LAUNCHES.values()) == 0
+
+
+def test_cuda_backward_wrappers_refuse_cpu_tensors():
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(7, (1, 4, 4, 32), False), torch.float32)
+    part = hk.gn_stats_plain(x, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.gn_silu_bwd_cuda(x, part, gy, scale, bias)
+    qkv, gout = attn_inputs(8, 1, 16, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        hk.attention_bwd_cuda(qkv, dense_qkv_attention(qkv, 1), gout, 1)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain twin
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,dtype,film",
+    [((2, 16, 16, 512), torch.bfloat16, True), ((1, 8, 8, 2048), torch.bfloat16, False),
+     ((1, 64, 64, 256), torch.bfloat16, True), ((1, 16, 16, 256), torch.float32, False),
+     ((1, 6, 10, 24), torch.float32, True), ((1, 16, 16, 16), torch.float32, True)],
+)
+def test_gn_bwd_kernels_on_card(cuda_device, shape, dtype, film):
+    """gn_bwd_reduce's partials against ``gn_bwd_reduce_plain`` (fp32 sums
+    in another order, and in bf16 now and then a rounding tie of the
+    emulated composition broken the other way, one bf16 ulp of one term:
+    fp32 1e-4, bf16 1e-3 of the largest), gn_bwd_apply's dx against
+    ``gn_bwd_apply_plain`` on the same group means (one rounding of x's
+    dtype: bf16 1e-2, fp32 1e-5 of the largest), one launch each."""
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(9, shape, film), dtype, cuda_device)
+    part = hk.gn_stats_cuda(x, effective_groups(shape[-1], 32))
+    before = dict(hk.LAUNCHES)
+    sums = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
+    want = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
+    assert rel_err(sums.cpu().numpy(), want.cpu().numpy()) <= (1e-3 if dtype == torch.bfloat16 else 1e-4)
+    coef = hk.gn_bwd_coefficients(sums, scale, bias, shape[1] * shape[2], part.shape[1], f)[0]
+    dx = hk.gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, film=f)
+    torch.cuda.synchronize()
+    want = hk.gn_bwd_apply_plain(x, part, gy, coef, scale, bias, film=f)
+    assert rel_err(dx.float().cpu().numpy(), want.float().cpu().numpy()) <= (
+        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    assert hk.LAUNCHES["gn_bwd_reduce"] == before["gn_bwd_reduce"] + 1
+    assert hk.LAUNCHES["gn_bwd_apply"] == before["gn_bwd_apply"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,t,heads,ch,dtype",
+    [(2, 1024, 8, 64, torch.bfloat16), (1, 256, 4, 192, torch.bfloat16), (1, 64, 4, 256, torch.bfloat16),
+     (2, 64, 4, 8, torch.float32), (1, 64, 4, 16, torch.float32), (1, 100, 2, 64, torch.float32),
+     (1, 72, 1, 320, torch.bfloat16), (1, 33, 1, 7, torch.float32)],
+)
+def test_attention_bwd_kernels_on_card(cuda_device, n, t, heads, ch, dtype):
+    """attn_bwd_dq's dQ and workspace against ``attn_bwd_dq_plain``, then
+    attn_bwd_dkdv's dK, dV against ``attn_bwd_dkdv_plain`` on the kernel's
+    workspace: fp32 (FMA) 1e-5, bf16 (bf16 operands, fp32 sums) 2e-2 of the
+    largest; one launch each."""
+    qkv, gout = attn_inputs(n + t + ch, n, t, heads, ch, dtype)
+    qkv, gout = qkv.to(cuda_device), gout.to(cuda_device)
+    out = hk.attention_qkv(qkv, heads)
+    before = dict(hk.LAUNCHES)
+    dqkv = torch.zeros_like(qkv)
+    lse, d = hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv)
+    hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    dq, lse_p, d_p = hk.attn_bwd_dq_plain(qkv, out, gout, heads)
+    dk, dv = hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads)
+    got = dqkv.float().reshape(n, t, heads, 3, ch).unbind(3)
+    for name, g, w in (("lse", lse, lse_p), ("d", d, d_p), ("dq", got[0], dq), ("dk", got[1], dk),
+                       ("dv", got[2], dv)):
+        assert rel_err(g.cpu().numpy(), w.cpu().numpy()) <= tol, name
+    assert hk.LAUNCHES["attn_bwd_dq"] == before["attn_bwd_dq"] + 1
+    assert hk.LAUNCHES["attn_bwd_dkdv"] == before["attn_bwd_dkdv"] + 1
