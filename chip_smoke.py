@@ -19,9 +19,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    the least time the card could take (``bound_ms``); then the backward
    kernels (``gn_bwd_reduce``, ``gn_bwd_apply``, ``attn_bwd_dq``,
    ``attn_bwd_dkdv``) element by element against their plain twins at the
-   chairs train step's shapes (batch 8), the heads-by-count and the fp32
-   UNets' shapes, timed beside the twins, the bound and the backward of
-   ``F.scaled_dot_product_attention``; then gradients through each
+   chairs train step's shapes (batch 8), the drag step's T=1024 level
+   (batch 1), the heads-by-count and the fp32 UNets' shapes, timed beside
+   the twins, the bound and the backward of
+   ``F.scaled_dot_product_attention``, each row naming the route it ran
+   (``hk.attention_bwd_route``: "hopper" or "generic"); then gradients through each
    kernel's autograd Function (kernel forward, backward kernels) against
    autograd through the plain composition, at every chairs input at batch
    1 and at the fp32 UNets' inputs, with and without FiLM, one launch of
@@ -229,8 +231,12 @@ SOURCES = {
     "attention_generic": "ishapediting_tpu_torch/csrc/attention_generic.cu",
     "gn_bwd_reduce": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
     "gn_bwd_apply": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
-    "attn_bwd_dq": "ishapediting_tpu_torch/csrc/attention_bwd.cu",
-    "attn_bwd_dkdv": "ishapediting_tpu_torch/csrc/attention_bwd.cu",
+    "attn_bwd_dq": "ishapediting_tpu_torch/csrc/attention_bwd_hopper.cu",  # the headline row's route
+    "attn_bwd_dkdv": "ishapediting_tpu_torch/csrc/attention_bwd_hopper.cu",
+}
+BWD_ATTN_SOURCES = {  # each attention backward row's source, by hk.attention_bwd_route
+    "hopper": "ishapediting_tpu_torch/csrc/attention_bwd_hopper.cu",
+    "generic": "ishapediting_tpu_torch/csrc/attention_bwd.cu",
 }
 
 
@@ -550,12 +556,13 @@ def check_rel(name, got, want, tol) -> float:
 # The backward kernels at the main path's shapes: the chairs train step's
 # GroupNorm inputs at batch 8 (the largest, with FiLM: the second norm of a
 # ResBlock), the widest, and an fp32 UNet's (one channel per group); the
-# chairs attention at batch 8 (T 1024, 256, 64), the heads-by-count head dims
-# at batch 1, and the fp32 UNets' head dims 8 and 16. The first case of each
-# is its kernels' headline row.
+# chairs attention at batch 8 (T 1024, 256, 64), the drag step's T=1024
+# level at batch 1, the heads-by-count head dims at batch 1, and the fp32
+# UNets' head dims 8 and 16. The first case of each is its kernels'
+# headline row.
 BWD_GN_CASES = [((8, 128, 128, 256), BF16, True), ((8, 64, 64, 512), BF16, False),
                 ((1, 8, 8, 2048), BF16, True), ((1, 16, 16, 16), FP32, True), ((2, 16, 16, 96), FP32, True)]
-BWD_ATTN_CASES = [(8, 1024, 8, 64, BF16), (8, 256, 12, 64, BF16), (8, 64, 16, 64, BF16),
+BWD_ATTN_CASES = [(8, 1024, 8, 64, BF16), (8, 256, 12, 64, BF16), (8, 64, 16, 64, BF16), (1, 1024, 8, 64, BF16),
                   (1, 256, 4, 192, BF16), (1, 64, 4, 256, BF16), (2, 64, 4, 8, FP32), (1, 64, 4, 16, FP32)]
 BWD_TOL = {BF16: 2e-2, FP32: 1e-5}  # of the largest value: one rounding to bf16, or fp32 sums in another order
 # gn_bwd_reduce's partials, of the largest: fp32 sums in another order; in
@@ -612,10 +619,11 @@ def backward_kernel_checks(hk, dev, report) -> None:
         qkv = torch.randn((n, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
         gout = torch.randn((n, t, heads * ch), generator=gen, device=dev).to(dtype)
         out = hk.attention_qkv(qkv, heads)
-        tag = f"T={t} H={heads} ch={ch} {str(dtype)[6:]} batch {n}"
+        kernel_route = hk.attention_bwd_route(dtype, ch)
+        tag = f"T={t} H={heads} ch={ch} {str(dtype)[6:]} batch {n}, {kernel_route} route"
         dqkv = torch.zeros_like(qkv)
-        lse, d = hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv)
-        hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv)
+        lse, d, sq = hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv)
+        hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv, sq=sq)
         torch.cuda.synchronize()
         dq, lse_p, d_p = hk.attn_bwd_dq_plain(qkv, out, gout, heads)
         dk, dv = hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads)
@@ -626,7 +634,7 @@ def backward_kernel_checks(hk, dev, report) -> None:
         err_kv = max(check_rel(f"attn_bwd_dkdv {tag}, {what}", a, b, tol)
                      for what, a, b in (("dK", got[1], dk), ("dV", got[2], dv)))
         q_ms = device_ms(lambda: hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv), kernel="attn_bwd_dq_kernel")
-        kv_ms = device_ms(lambda: hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv),
+        kv_ms = device_ms(lambda: hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv, sq=sq),
                           kernel="attn_bwd_dkdv_kernel")
         qp_ms = device_ms(lambda: hk.attn_bwd_dq_plain(qkv, out, gout, heads), 5)
         kvp_ms = device_ms(lambda: hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads), 5)
@@ -644,7 +652,9 @@ def backward_kernel_checks(hk, dev, report) -> None:
         kvb_ms, kvb_by = bound_ms(nbytes(qkv, gout, lse, d) + 2 * nbytes(dqkv) // 3, **work[1])
         say(f"    attn_bwd_dq {q_ms:.4f} ms (plain {qp_ms:.4f}, bound {qb_ms:.4f} {qb_by}), attn_bwd_dkdv "
             f"{kv_ms:.4f} ms (plain {kvp_ms:.4f}, bound {kvb_ms:.4f} {kvb_by}); SDPA backward {lib_ms} ms")
-        base = dict(shape=list(qkv.shape), heads=heads, dtype=str(dtype)[6:], library_ms=lib_ms,
+        base = dict(shape=list(qkv.shape), heads=heads, dtype=str(dtype)[6:], kernel_route=kernel_route,
+                    source=BWD_ATTN_SOURCES[kernel_route],
+                    library_ms=lib_ms,
                     library="backward of F.scaled_dot_product_attention (dQ, dK, dV: both kernels' work)")
         rows["attn_bwd_dq"].append(dict(base, ms=q_ms, plain_ms=qp_ms, bound_ms=qb_ms, bound_by=qb_by,
                                         max_abs_err=err_q))
@@ -3824,13 +3834,14 @@ def main() -> None:
         if totals.get(name, 0) <= 0:
             fail(f"{name} was not launched by the main-path runs")
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=TPU_KERNELS[name],
+            name=name, route="cuda", source=r.get("source", SOURCES[name]), replaces=TPU_KERNELS[name],
             launches=totals[name], max_abs_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"], shape=r["shape"],
             shapes=r["shapes"], per_forward={b: per_forward[b][name] for b in per_forward},
             per_forward_heads_by_count={b: hbc["per_forward"][b][name] for b in hbc["per_forward"]},
             backward_rel_err=r["backward_rel_err"],
+            **({"kernel_route": r["kernel_route"]} if "kernel_route" in r else {}),
         ))
     say("edit path: " + json.dumps({"gate": gate, **edits}, default=float))
     say("serving: " + json.dumps(serving, default=float))

@@ -11,25 +11,32 @@
 // P and dS rounded to it as product operands (nothing rounds in fp32). That
 // backward is the reference of chip_smoke.py's 1e-2 gate (GRAD_TOL), and its
 // own bf16 rounding puts an exact fp32 gradient near the gate's edge. Two
-// launches:
-//   attn_bwd_dq: a CTA per (64 query rows, batch*head, output slice). A
-//     first sweep over the key tiles gives each row's log-sum-exp of the
-//     scaled logits; D comes from the forward's output and the cotangent; a
-//     second sweep rebuilds P, dP = dO V^T and dS, and sums dQ. It writes
-//     the log-sum-exp and D to an fp32 workspace [N, H, T].
-//   attn_bwd_dkdv: a CTA per (64 key rows, batch*head, output slice). It
+// launches, each with two routes picked by the entry points below:
+//   attn_bwd_dq: a CTA per (64 query rows, batch*head[, output slice]). One
+//     sweep over the key tiles with an online log-sum-exp (the dQ sums
+//     rescaled when a row's maximum moves, dS = exp(S - m) (dP - D) rounded
+//     before its product, divided by the row sum at the end); D comes from
+//     the forward's output and the cotangent. It writes the log-sum-exp and
+//     D to an fp32 workspace [N, H, T].
+//   attn_bwd_dkdv: a CTA per (64 key rows, batch*head[, output slice]). It
 //     sweeps the query tiles, rebuilds P^T from the workspace, and sums
 //     dV = P^T dO and dK = dS^T Q.
 // Both write straight into dqkv in qkv's [N, T, H*3*ch] layout.
+//   The Hopper route, bf16 at ch 32, 64 and 128 (every attention call of the
+// chairs/cars/planes UNets): attention_bwd_hopper.cu (TMA, an mbarrier ring,
+// wgmma, two consumer warpgroups per CTA; its workspace also holds
+// sQ = rnd(s q), written by attn_bwd_dq). The generic route, fp32 at any ch
+// and bf16 at any other ch: the kernels in this file.
 //
-// Bound on this card: eight T^2*ch products per (batch, head) (the logits
+// Bound on this card: seven T^2*ch products per (batch, head) (the logits
 // and dP in both launches, dQ, dK, dV) against reading qkv, out and dO and
 // writing dqkv once: operations at the chairs shapes (T = 1024), bytes at
-// T = 64. bf16 runs the products on the tensor cores (mma.sync m16n8k16,
-// fp32 accumulators); fp32 (the tiny preset and the fp32 UNets, T <= 256)
-// on the FMA units in fp32, exact to 1e-5 where TF32 is not.
+// T = 64. The generic route runs bf16 products on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulators) and fp32 (the tiny preset and the
+// fp32 UNets, T <= 256) on the FMA units in fp32, exact to 1e-5 where TF32
+// is not.
 //
-// Design (simple first: no copy pipelining, no wgmma):
+// Generic design (simple: no copy pipelining, no wgmma):
 // - A CTA of four warps owns 64 rows (16 per warp) of its own tile and
 //   sweeps 64-row tiles of the other operand. The logit-type products
 //   (S = X1 Y1^T, dP = X2 Y2^T, X the own rows, Y the swept rows) run over
@@ -38,10 +45,16 @@
 //   channels past ch are zero in shared memory, and past 64 the products
 //   loop over chunks.
 // - The output-type products (dQ += dS K, dV += P^T dO, dK += dS^T Q) keep
-//   out_cols (16, 32 or 64) output channels per thread in registers; past
-//   64 channels grid z slices the outputs by 64 and each slice recomputes
-//   the logits (ch 192 and 256: 3 and 4 slices). The streamed tile's slice
-//   is reloaded into its chunk buffer when ch > 64.
+//   out_cols (16, 32, 64 or, past 64 channels, 128) output channels per
+//   thread in registers; past 128 channels grid z slices the outputs by 128
+//   and each slice recomputes the logits (ch 192 and 256: two slices). A
+//   128-channel slice runs its output products in two halves of 64.
+// - Where a tile per chunk of every operand fits in shared memory (bf16 to
+//   ch 384, fp32 to ch 192), the own tiles load once and each swept tile in
+//   one round, and the output products read the swept tile's chunks where
+//   they lie: per swept tile one round of loads, where a chunk at a time
+//   took five at ch 192 (the latency that bounds a batch-1 call). Past that
+//   the chunks stream through one tile per operand.
 // - bf16: S and dP are m16n8 accumulator fragments; P and dS become the A
 //   operand of the output product from registers (rounded to bf16, as the
 //   forward rounds the weights), the B operand by ldmatrix.trans. fp32: the
@@ -49,7 +62,7 @@
 //   per-warp shared-memory scratch.
 // - Any T: rows past T load as zeros; keys past T get P = 0 in the dq
 //   launch, queries past T a log-sum-exp of +inf (so P = 0) in dkdv.
-// - Softmax in fp32 in natural units, each exponent (s - lse) times log2 e
+// - Softmax in fp32 in natural units, each exponent (s - m) times log2 e
 //   through ex2.approx.
 
 #include <cuda_runtime.h>
@@ -80,12 +93,25 @@ template <typename T>
 __host__ __device__ constexpr int tile_stride() { return kChunk + Elt<T>::kPad; }
 constexpr int kScratch = kRows + 4;  // fp32 scratch row stride
 
-// Dynamic shared memory: four tiles [64][stride]; fp32 a [16][68] scratch
-// per warp; dkdv the swept tile's log-sum-exp and D.
+constexpr int kMaxSmem = 232448;  // the most dynamic shared memory one block may use
+
+// Dynamic shared memory: nb chunk tiles [64][stride] of each of the four
+// operands (own x1, x2, swept y1, y2); dkdv the swept tile's log-sum-exp and
+// D; fp32 a [16][68] scratch per warp.
 template <typename T>
-constexpr int smem_bytes(bool dkdv) {
-  return 4 * kRows * tile_stride<T>() * (int)sizeof(T) +
+constexpr int smem_bytes(bool dkdv, int nb) {
+  return 4 * nb * kRows * tile_stride<T>() * (int)sizeof(T) +
          (sizeof(T) == 4 ? 4 * 16 * kScratch * 4 : 0) + (dkdv ? 2 * kRows * 4 : 0);
+}
+
+// Chunk tiles per operand: every chunk where they fit (the own tiles load
+// once, each swept tile in one round, and the output products read the
+// swept tile's chunks where they lie), else one (the chunks stream through
+// it: ch past 384 in bf16, past 192 in fp32).
+template <typename T>
+int chunk_buffers(int ch, bool dkdv) {
+  const int chunks = (ch + kChunk - 1) / kChunk;
+  return smem_bytes<T>(dkdv, chunks) <= kMaxSmem ? chunks : 1;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -284,6 +310,11 @@ __device__ __forceinline__ void mm_pv(float (&o)[NO / 8][4], const float (&p)[8]
   __syncwarp();  // the scratch is rewritten by the next call
 }
 
+// Channels [64h, 64h + 64) of a 128-channel accumulator.
+__device__ __forceinline__ float (&half64(float (&o)[16][4], int h))[8][4] {
+  return *reinterpret_cast<float(*)[8][4]>(&o[8 * h]);
+}
+
 // One head's operands: the own rows' blocks x1, x2 and the swept rows'
 // blocks y1, y2 (each at its row 0, column 0), their row strides, T and ch;
 // x1 and y1 (q and k) load times s = ch^-1/4, rounded to T.
@@ -295,36 +326,48 @@ struct Operands {
   const T* y2;
   long long ldx1, ldx2, ldy1, ldy2;
   int Tn, ch, chunks;
+  int nb;  // chunk tiles per operand: chunks (resident) or 1 (streamed)
   bool vec;
   float s;
 };
 
 // S = X1 Y1^T and, with DP, dP = X2 Y2^T, for this warp's 16 of the own
 // rows [x0, x0 + 64) and the swept rows [y0, y0 + 64), over every chunk of
-// 64 channels, each rounded to T. With one chunk the own tiles stay loaded
-// (the caller loads them once). Leaves the last chunk of Y1 (and Y2) in
-// shared memory.
+// 64 channels, each rounded to T. Resident (op.nb == op.chunks): the own
+// tiles hold every chunk (the caller loads them once), the swept tile's
+// chunks load in one round and stay until the next call. Streamed: the own
+// and swept chunks go through one tile each, chunk by chunk.
 template <typename T, bool DP>
 __device__ __forceinline__ void logits(float (&s)[8][4], float (&dp)[8][4], T* sx1, T* sx2, T* sy1,
                                        T* sy2, const Operands<T>& op, int x0, int y0) {
-  constexpr int S = tile_stride<T>();
+  constexpr int S = tile_stride<T>(), TS = kRows * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool resident = op.nb == op.chunks;
   zero(s);
   if (DP) zero(dp);
-  for (int c0 = 0; c0 < op.ch; c0 += kChunk) {
-    __syncthreads();  // every warp is done with the tiles about to be overwritten
-    if (op.chunks > 1) {
+  if (resident) {
+    __syncthreads();  // every warp is done with the swept tiles about to be overwritten
+    for (int c = 0; c < op.chunks; ++c) {
+      load_tile(sy1 + c * TS, op.y1, op.ldy1, y0, op.Tn, c * kChunk, kChunk, op.ch, op.vec, op.s);
+      if (DP) load_tile(sy2 + c * TS, op.y2, op.ldy2, y0, op.Tn, c * kChunk, kChunk, op.ch, op.vec, 1.f);
+    }
+    __syncthreads();
+  }
+  for (int c = 0; c < op.chunks; ++c) {
+    const int c0 = c * kChunk, b = resident ? c * TS : 0;
+    if (!resident) {
+      __syncthreads();  // every warp is done with the tiles about to be overwritten
       load_tile(sx1, op.x1, op.ldx1, x0, op.Tn, c0, kChunk, op.ch, op.vec, op.s);
       if (DP) load_tile(sx2, op.x2, op.ldx2, x0, op.Tn, c0, kChunk, op.ch, op.vec, 1.f);
+      load_tile(sy1, op.y1, op.ldy1, y0, op.Tn, c0, kChunk, op.ch, op.vec, op.s);
+      if (DP) load_tile(sy2, op.y2, op.ldy2, y0, op.Tn, c0, kChunk, op.ch, op.vec, 1.f);
+      __syncthreads();
     }
-    load_tile(sy1, op.y1, op.ldy1, y0, op.Tn, c0, kChunk, op.ch, op.vec, op.s);
-    if (DP) load_tile(sy2, op.y2, op.ldy2, y0, op.Tn, c0, kChunk, op.ch, op.vec, 1.f);
-    __syncthreads();
     // bf16: whole k-steps of 16 (zeros past ch); fp32: exactly the channels
     const int rest = op.ch - c0;
     const int cols = sizeof(T) == 2 ? min(kChunk, 16 * ((rest + 15) / 16)) : min(kChunk, rest);
-    mm_nt(s, sx1 + 16 * warp * S, sy1, cols, lane);
-    if (DP) mm_nt(dp, sx2 + 16 * warp * S, sy2, cols, lane);
+    mm_nt(s, sx1 + b + 16 * warp * S, sy1 + b, cols, lane);
+    if (DP) mm_nt(dp, sx2 + b + 16 * warp * S, sy2 + b, cols, lane);
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -335,19 +378,30 @@ __device__ __forceinline__ void logits(float (&s)[8][4], float (&dp)[8][4], T* s
     }
 }
 
+// The own tiles' every chunk, loaded once (resident operands).
+template <typename T>
+__device__ __forceinline__ void load_own(T* sx1, T* sx2, const Operands<T>& op, int x0) {
+  constexpr int TS = kRows * tile_stride<T>();
+  for (int c = 0; c < op.chunks; ++c) {
+    load_tile(sx1 + c * TS, op.x1, op.ldx1, x0, op.Tn, c * kChunk, kChunk, op.ch, op.vec, op.s);
+    load_tile(sx2 + c * TS, op.x2, op.ldx2, x0, op.Tn, c * kChunk, kChunk, op.ch, op.vec, 1.f);
+  }
+}
+
 // The NO output channels [c0, c0 + NO) of this warp's rows g, g+8 (rows
-// r0 + 16*warp + ...), times `mul`, into the column block dst (row 0,
-// column 0; rows ld apart) where row < Tn and column < ch.
+// r0 + 16*warp + ...), times mul[0] (row g) or mul[1] (row g+8), into the
+// column block dst (row 0, column 0; rows ld apart) where row < Tn and
+// column < ch.
 template <typename T, int NO>
 __device__ __forceinline__ void store_rows(T* dst, long long ld, const float (&o)[NO / 8][4],
-                                           float mul, int r0, int c0, int Tn, int ch) {
+                                           const float (&mul)[2], int r0, int c0, int Tn, int ch) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < NO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int row = r0 + 16 * warp + g + 8 * (e >> 1), c = c0 + 8 * n + 2 * t + (e & 1);
-      if (row < Tn && c < ch) store1(dst + (long long)row * ld + c, o[n][e] * mul);
+      if (row < Tn && c < ch) store1(dst + (long long)row * ld + c, o[n][e] * mul[e >> 1]);
     }
 }
 
@@ -357,15 +411,15 @@ template <typename T, int NO>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out, const T* __restrict__ gout,
                    T* __restrict__ dqkv, float* __restrict__ lse_ws, float* __restrict__ d_ws,
-                   int Tn, int H, int ch, bool vec) {
+                   int Tn, int H, int ch, int nb, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int S = tile_stride<T>();
+  constexpr int TS = kRows * tile_stride<T>();
   T* sq = reinterpret_cast<T*>(smem);
-  T* sdo = sq + kRows * S;
-  T* sk = sdo + kRows * S;
-  T* sv = sk + kRows * S;
+  T* sdo = sq + nb * TS;
+  T* sk = sdo + nb * TS;
+  T* sv = sk + nb * TS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float* scratch = reinterpret_cast<float*>(sv + kRows * S) + warp * 16 * kScratch;
+  float* scratch = reinterpret_cast<float*>(sv + nb * TS) + warp * 16 * kScratch;
   const int bh = blockIdx.y, n = bh / H, h = bh - n * H;
   const int x0 = blockIdx.x * kRows, z = blockIdx.z;
   const long long W = 3LL * H * ch, Wo = (long long)H * ch;
@@ -374,7 +428,7 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out, const T
   const T* oh = out + (long long)n * Tn * Wo + (long long)h * ch;
   const float s4 = rsqrtf(sqrtf((float)ch));  // s = ch^-1/4
   const Operands<T> op = {qh, doh, qh + ch, qh + 2 * ch, W, Wo, W, W, Tn, ch, (ch + kChunk - 1) / kChunk,
-                          vec, s4};
+                          nb, vec, s4};
 
   // D of this thread's rows g, g+8: rowsum(dO * O) over all channels.
   float dr[2] = {0.f, 0.f};
@@ -389,16 +443,16 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out, const T
     if (rr == g) dr[0] = acc;
     if (rr == g + 8) dr[1] = acc;
   }
-  if (op.chunks == 1) {  // the own tiles hold every channel: load them once
-    load_tile(sq, op.x1, op.ldx1, x0, Tn, 0, kChunk, ch, vec, s4);
-    load_tile(sdo, op.x2, op.ldx2, x0, Tn, 0, kChunk, ch, vec, 1.f);
-  }
+  if (nb == op.chunks) load_own(sq, sdo, op, x0);
 
-  // Sweep 1: the running max m and sum l (this lane's share) of each row.
-  float s[8][4], dp[8][4];
+  // One sweep: the running max m and sum l (this lane's share) of each row,
+  // P relative to m, dS = P (dP - D), and dQ += dS K for this CTA's output
+  // slice, rescaled whenever m moves.
+  float s[8][4], dp[8][4], dq[NO / 8][4];
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  zero(dq);
   for (int y0 = 0; y0 < Tn; y0 += kRows) {
-    logits<T, false>(s, dp, sq, sdo, sk, sv, op, x0, y0);
+    logits<T, true>(s, dp, sq, sdo, sk, sv, op, x0, y0);
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -407,52 +461,60 @@ attn_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ out, const T
         s[j][e] = y0 + 8 * j + 2 * t + (e & 1) < Tn ? s[j][e] : -CUDART_INF_F;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
+    float c[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float mn = fmaxf(m[r], mx[r]);
-      l[r] *= ex2((m[r] - mn) * kLog2e);  // 0 on the first tile (m = -inf)
+      c[r] = ex2((m[r] - mn) * kLog2e);  // 0 on the first tile (m = -inf)
+      l[r] *= c[r];
       m[r] = mn;
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += ex2((s[j][e] - m[e >> 1]) * kLog2e);
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2((s[j][e] - m[e >> 1]) * kLog2e);  // 0 past T
+        l[e >> 1] += p;
+        s[j][e] = p * (dp[j][e] - dr[e >> 1]);
+      }
+#pragma unroll
+    for (int k = 0; k < NO / 8; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[k][e] *= c[e >> 1];
+    if constexpr (NO == 128) {  // this CTA's slice of K, 64 channels at a time
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 2 * z + hf;  // its chunk
+        if (c >= op.chunks) break;
+        if (nb == op.chunks) {  // resident: the chunk is loaded
+          mm_pv<64>(half64(dq, hf), s, sk + c * TS, scratch, lane);
+        } else {  // streamed: sk holds the last chunk
+          __syncthreads();
+          load_tile(sk, op.y1, op.ldy1, y0, Tn, c * kChunk, kChunk, ch, vec, s4);
+          __syncthreads();
+          mm_pv<64>(half64(dq, hf), s, sk, scratch, lane);
+        }
+      }
+    } else {  // ch <= 64: sk holds every channel
+      mm_pv<NO>(dq, s, sk, scratch, lane);
+    }
   }
-  float lse[2];
+  float lse[2], mul[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     lse[r] = m[r] + logf(l[r]);
+    mul[r] = s4 / l[r];
     const int row = x0 + 16 * warp + g + 8 * r;
     if (z == 0 && t == 0 && row < Tn) {
       lse_ws[(long long)bh * Tn + row] = lse[r];
       d_ws[(long long)bh * Tn + row] = dr[r];
     }
   }
-
-  // Sweep 2: P, dS, and dQ += dS K for this CTA's output slice.
-  float dq[NO / 8][4];
-  zero(dq);
-  for (int y0 = 0; y0 < Tn; y0 += kRows) {
-    logits<T, true>(s, dp, sq, sdo, sk, sv, op, x0, y0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = y0 + 8 * j + 2 * t + (e & 1) < Tn ? ex2((s[j][e] - lse[e >> 1]) * kLog2e) : 0.f;
-        s[j][e] = p * (dp[j][e] - dr[e >> 1]);
-      }
-    if (op.chunks > 1) {  // sk holds the last chunk: load this CTA's slice
-      __syncthreads();
-      load_tile(sk, op.y1, op.ldy1, y0, Tn, z * NO, NO, ch, vec, s4);
-      __syncthreads();
-    }
-    mm_pv<NO>(dq, s, sk, scratch, lane);
-  }
-  store_rows<T, NO>(dqkv + (long long)n * Tn * W + (long long)h * 3 * ch, W, dq, s4, x0, z * NO, Tn, ch);
+  store_rows<T, NO>(dqkv + (long long)n * Tn * W + (long long)h * 3 * ch, W, dq, mul, x0, z * NO, Tn, ch);
 }
 
 // attn_bwd_dkdv. grid (key tiles, N*H, output slices of NO); lse, dd from
@@ -461,14 +523,14 @@ template <typename T, int NO>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ gout,
                      const float* __restrict__ lse_ws, const float* __restrict__ d_ws,
-                     T* __restrict__ dqkv, int Tn, int H, int ch, bool vec) {
+                     T* __restrict__ dqkv, int Tn, int H, int ch, int nb, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int S = tile_stride<T>();
+  constexpr int TS = kRows * tile_stride<T>();
   T* sk = reinterpret_cast<T*>(smem);
-  T* sv = sk + kRows * S;
-  T* sq = sv + kRows * S;
-  T* sdo = sq + kRows * S;
-  float* s_lse = reinterpret_cast<float*>(sdo + kRows * S);
+  T* sv = sk + nb * TS;
+  T* sq = sv + nb * TS;
+  T* sdo = sq + nb * TS;
+  float* s_lse = reinterpret_cast<float*>(sdo + nb * TS);
   float* s_d = s_lse + kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
   float* scratch = s_d + kRows + warp * 16 * kScratch;
@@ -479,11 +541,8 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ gout,
   const T* doh = gout + (long long)n * Tn * Wo + (long long)h * ch;
   const float s4 = rsqrtf(sqrtf((float)ch));  // s = ch^-1/4
   const Operands<T> op = {qh + ch, qh + 2 * ch, qh, doh, W, W, W, Wo, Tn, ch, (ch + kChunk - 1) / kChunk,
-                          vec, s4};
-  if (op.chunks == 1) {
-    load_tile(sk, op.x1, op.ldx1, x0, Tn, 0, kChunk, ch, vec, s4);
-    load_tile(sv, op.x2, op.ldx2, x0, Tn, 0, kChunk, ch, vec, 1.f);
-  }
+                          nb, vec, s4};
+  if (nb == op.chunks) load_own(sk, sv, op, x0);
 
   float st[8][4], dpt[8][4], dk[NO / 8][4], dv[NO / 8][4];
   zero(dk);
@@ -505,18 +564,31 @@ attn_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ gout,
         st[j][e] = ex2((st[j][e] - s_lse[qi]) * kLog2e);  // 0 past T (lse +inf)
         dpt[j][e] = st[j][e] * (dpt[j][e] - s_d[qi]);
       }
-    if (op.chunks > 1) {  // sq and sdo hold the last chunk: load this CTA's slice
-      __syncthreads();
-      load_tile(sq, op.y1, op.ldy1, y0, Tn, z * NO, NO, ch, vec, s4);
-      load_tile(sdo, op.y2, op.ldy2, y0, Tn, z * NO, NO, ch, vec, 1.f);
-      __syncthreads();
+    if constexpr (NO == 128) {  // this CTA's slice of Q and dO, 64 channels at a time
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 2 * z + hf;  // its chunk
+        if (c >= op.chunks) break;
+        int b = c * TS;  // resident: the chunk is loaded
+        if (nb != op.chunks) {  // streamed: sq and sdo hold the last chunk
+          __syncthreads();
+          load_tile(sq, op.y1, op.ldy1, y0, Tn, c * kChunk, kChunk, ch, vec, s4);
+          load_tile(sdo, op.y2, op.ldy2, y0, Tn, c * kChunk, kChunk, ch, vec, 1.f);
+          __syncthreads();
+          b = 0;
+        }
+        mm_pv<64>(half64(dv, hf), st, sdo + b, scratch, lane);
+        mm_pv<64>(half64(dk, hf), dpt, sq + b, scratch, lane);
+      }
+    } else {  // ch <= 64: sq and sdo hold every channel
+      mm_pv<NO>(dv, st, sdo, scratch, lane);
+      mm_pv<NO>(dk, dpt, sq, scratch, lane);
     }
-    mm_pv<NO>(dv, st, sdo, scratch, lane);
-    mm_pv<NO>(dk, dpt, sq, scratch, lane);
   }
   T* base = dqkv + (long long)n * Tn * W + (long long)h * 3 * ch;
-  store_rows<T, NO>(base + ch, W, dk, s4, x0, z * NO, Tn, ch);
-  store_rows<T, NO>(base + 2 * ch, W, dv, 1.f, x0, z * NO, Tn, ch);
+  const float ks[2] = {s4, s4}, vs[2] = {1.f, 1.f};
+  store_rows<T, NO>(base + ch, W, dk, ks, x0, z * NO, Tn, ch);
+  store_rows<T, NO>(base + 2 * ch, W, dv, vs, x0, z * NO, Tn, ch);
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -524,28 +596,28 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 template <typename T, int NO>
 int launch_dq(const void* qkv, const void* out, const void* gout, void* dqkv, void* lse, void* dd,
               int N, int Tn, int H, int ch, bool vec, cudaStream_t st) {
-  constexpr int bytes = smem_bytes<T>(false);
+  const int nb = chunk_buffers<T>(ch, false), bytes = smem_bytes<T>(false, nb);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_bwd_dq_kernel<T, NO>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_bwd_dq_kernel<T, NO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Tn + kRows - 1) / kRows, N * H, (ch + NO - 1) / NO);
   attn_bwd_dq_kernel<T, NO><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(out), static_cast<const T*>(gout),
-      static_cast<T*>(dqkv), static_cast<float*>(lse), static_cast<float*>(dd), Tn, H, ch, vec);
+      static_cast<T*>(dqkv), static_cast<float*>(lse), static_cast<float*>(dd), Tn, H, ch, nb, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NO>
 int launch_dkdv(const void* qkv, const void* gout, const void* lse, const void* dd, void* dqkv,
                 int N, int Tn, int H, int ch, bool vec, cudaStream_t st) {
-  constexpr int bytes = smem_bytes<T>(true);
+  const int nb = chunk_buffers<T>(ch, true), bytes = smem_bytes<T>(true, nb);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_bwd_dkdv_kernel<T, NO>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_bwd_dkdv_kernel<T, NO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((Tn + kRows - 1) / kRows, N * H, (ch + NO - 1) / NO);
   attn_bwd_dkdv_kernel<T, NO><<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(gout), static_cast<const float*>(lse),
-      static_cast<const float*>(dd), static_cast<T*>(dqkv), Tn, H, ch, vec);
+      static_cast<const float*>(dd), static_cast<T*>(dqkv), Tn, H, ch, nb, vec);
   return (int)cudaGetLastError();
 }
 
@@ -556,50 +628,80 @@ bool vec_ok(int ch, const void* a, const void* b, const void* c) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; no: output channels per CTA (16, 32 or
-// 64, from ops/hopper_kernels.py attention_bwd_geometry). Writes the q
-// columns of dqkv and the workspace lse, dd [N, H, T] fp32.
+// The Hopper route (attention_bwd_hopper.cu).
+extern "C" int ishape_attn_bwd_dq_wgmma(const void* qkv, const void* out, const void* gout, void* dqkv,
+                                        void* lse, void* dd, void* sq, int N, int T, int H, int ch,
+                                        cudaStream_t st);
+extern "C" int ishape_attn_bwd_dkdv_wgmma(const void* qkv, const void* gout, const void* lse, const void* dd,
+                                          const void* sq, void* dqkv, int N, int T, int H, int ch,
+                                          cudaStream_t st);
+
+namespace {
+
+// The route of a call: the Hopper kernels for bf16 at ch 32, 64 and 128
+// (ops/hopper_kernels.py attention_bwd_route), else the generic ones.
+bool hopper_route(int dtype, int ch) { return dtype == 1 && (ch == 32 || ch == 64 || ch == 128); }
+
+// A generic launch's output channels per CTA: 16, 32 or 64 up to 64
+// channels, 128 past them.
+bool generic_slice_ok(int ch, int no) {
+  return ch > 64 ? no == 128 : (no == 16 || no == 32 || no == 64);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; no: the generic route's output channels
+// per CTA (ops/hopper_kernels.py attention_bwd_geometry; the Hopper route
+// ignores it). Writes the q columns of dqkv and the workspace: lse, dd
+// [N, H, T] fp32 and, on the Hopper route, sq [N, T, H*ch] bf16 (sQ; the
+// generic route takes a null sq).
 extern "C" int ishape_attn_bwd_dq(const void* qkv, const void* out, const void* gout, void* dqkv,
-                                  void* lse, void* dd, int dtype, int N, int T, int H, int ch,
+                                  void* lse, void* dd, void* sq, int dtype, int N, int T, int H, int ch,
                                   int no, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N < 1 || T < 1 || H < 1 || ch < 1 || (no != 16 && no != 32 && no != 64) ||
-      (ch > 64 && no != 64) || N * H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (N < 1 || T < 1 || H < 1 || ch < 1 || N * H > 65535) return (int)cudaErrorInvalidValue;
+  if (hopper_route(dtype, ch))
+    return ishape_attn_bwd_dq_wgmma(qkv, out, gout, dqkv, lse, dd, sq, N, T, H, ch, st);
+  if (!generic_slice_ok(ch, no)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     const bool vec = vec_ok<__nv_bfloat16>(ch, qkv, out, gout);
     if (no == 16) return launch_dq<__nv_bfloat16, 16>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
     if (no == 32) return launch_dq<__nv_bfloat16, 32>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
-    return launch_dq<__nv_bfloat16, 64>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
+    if (no == 64) return launch_dq<__nv_bfloat16, 64>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
+    return launch_dq<__nv_bfloat16, 128>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
   }
   if (dtype == 0) {
     const bool vec = vec_ok<float>(ch, qkv, out, gout);
     if (no == 16) return launch_dq<float, 16>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
     if (no == 32) return launch_dq<float, 32>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
-    return launch_dq<float, 64>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
+    if (no == 64) return launch_dq<float, 64>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
+    return launch_dq<float, 128>(qkv, out, gout, dqkv, lse, dd, N, T, H, ch, vec, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // Writes the k and v columns of dqkv from the workspace of ishape_attn_bwd_dq.
 extern "C" int ishape_attn_bwd_dkdv(const void* qkv, const void* gout, const void* lse,
-                                    const void* dd, void* dqkv, int dtype, int N, int T, int H,
-                                    int ch, int no, void* stream) {
+                                    const void* dd, const void* sq, void* dqkv, int dtype, int N, int T,
+                                    int H, int ch, int no, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N < 1 || T < 1 || H < 1 || ch < 1 || (no != 16 && no != 32 && no != 64) ||
-      (ch > 64 && no != 64) || N * H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (N < 1 || T < 1 || H < 1 || ch < 1 || N * H > 65535) return (int)cudaErrorInvalidValue;
+  if (hopper_route(dtype, ch))
+    return ishape_attn_bwd_dkdv_wgmma(qkv, gout, lse, dd, sq, dqkv, N, T, H, ch, st);
+  if (!generic_slice_ok(ch, no)) return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     const bool vec = vec_ok<__nv_bfloat16>(ch, qkv, gout, gout);
     if (no == 16) return launch_dkdv<__nv_bfloat16, 16>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
     if (no == 32) return launch_dkdv<__nv_bfloat16, 32>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
-    return launch_dkdv<__nv_bfloat16, 64>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
+    if (no == 64) return launch_dkdv<__nv_bfloat16, 64>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
+    return launch_dkdv<__nv_bfloat16, 128>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
   }
   if (dtype == 0) {
     const bool vec = vec_ok<float>(ch, qkv, gout, gout);
     if (no == 16) return launch_dkdv<float, 16>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
     if (no == 32) return launch_dkdv<float, 32>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
-    return launch_dkdv<float, 64>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
+    if (no == 64) return launch_dkdv<float, 64>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
+    return launch_dkdv<float, 128>(qkv, gout, lse, dd, dqkv, N, T, H, ch, vec, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -26,7 +26,10 @@ Two ops, eight kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
   sums of the cotangent through SiLU, FiLM and the affine) and
   ``gn_bwd_apply`` (dx), beside the forward in ``csrc/groupnorm_silu.cu``;
   the attention backward in two, ``attn_bwd_dq`` and ``attn_bwd_dkdv``
-  (``csrc/attention_bwd.cu``, every dtype and head dim the forward takes).
+  (every dtype and head dim the forward takes), each with two routes as
+  the forward has: bf16 at ch in {32, 64, 128} on the TMA + ``wgmma``
+  kernels (``csrc/attention_bwd_hopper.cu``), fp32 and bf16 at any other
+  ch on the generic ``mma.sync`` kernels (``csrc/attention_bwd.cu``).
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 version (the backward: autograd through the plain composition, as the JAX
@@ -60,7 +63,8 @@ from ishapediting_tpu_torch.ops.nn import effective_groups, group_norm, silu
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("groupnorm_silu.cu", "attention.cu", "attention_generic.cu", "attention_bwd.cu")
+SOURCES = ("groupnorm_silu.cu", "attention.cu", "attention_generic.cu", "attention_bwd.cu",
+           "attention_bwd_hopper.cu")
 LIB_NAME = "libishape_kernels.so"
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -194,10 +198,12 @@ def _load() -> ctypes.CDLL:
             lib.ishape_gn_bwd_reduce.restype = i
             lib.ishape_gn_bwd_apply.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 5 + [p]
             lib.ishape_gn_bwd_apply.restype = i
-            lib.ishape_attn_bwd_dq.argtypes = [p] * 6 + [i] * 6 + [p]
+            lib.ishape_attn_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [p]
             lib.ishape_attn_bwd_dq.restype = i
-            lib.ishape_attn_bwd_dkdv.argtypes = [p] * 5 + [i] * 6 + [p]
+            lib.ishape_attn_bwd_dkdv.argtypes = [p] * 6 + [i] * 6 + [p]
             lib.ishape_attn_bwd_dkdv.restype = i
+            lib.ishape_attn_bwd_wgmma_smem.argtypes = [i, i]
+            lib.ishape_attn_bwd_wgmma_smem.restype = i
             lib.ishape_error_string.argtypes = [i]
             lib.ishape_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -864,38 +870,89 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 # as product operands; nothing rounds in fp32), as eager PyTorch
 # differentiates ``dense_qkv_attention`` on the card, the reference of
 # chip_smoke.py's gradient gate. attn_bwd_dq (a CTA per query tile) sweeps
-# the keys twice:
-# the rows' log-sum-exp, then dQ; it writes the log-sum-exp and D to an fp32
-# workspace [N, H, T]. attn_bwd_dkdv (a CTA per key tile) sweeps the query
-# tiles, rebuilds P from the log-sum-exp, and sums dK and dV. Both write
-# into dqkv in qkv's [N, T, H*3*ch] layout.
+# the keys once with an online log-sum-exp (dS relative to the running row
+# maximum, rounded before its product, the dQ sums rescaled when the
+# maximum moves and divided by the row sum at the end); it writes the
+# log-sum-exp and D to an fp32 workspace [N, H, T]. attn_bwd_dkdv (a CTA per
+# key tile) sweeps the query tiles, rebuilds P from the log-sum-exp, and sums
+# dK and dV. Both write into dqkv in qkv's [N, T, H*3*ch] layout. Two routes,
+# as the forward's: "hopper" for bf16 at ch in {32, 64, 128}
+# (``csrc/attention_bwd_hopper.cu``: TMA, an mbarrier ring, ``wgmma``, two
+# consumer warpgroups splitting the swept tiles; its workspace also holds
+# sQ = rnd(s q) [N, T, H*ch] bf16, scaled once per tile by attn_bwd_dq and
+# swept by attn_bwd_dkdv), "generic" for the rest (``csrc/attention_bwd.cu``:
+# ``mma.sync`` in bf16, FMA in fp32).
 
-_ATTN_BWD_ROWS = 64  # rows of a CTA's own tile, and of each tile it sweeps
-_ATTN_BWD_CHUNK = 64  # channels per chunk of the logit products
+_ATTN_BWD_ROWS = 64  # rows of a CTA's own tile (and of each tile the generic route sweeps)
+_ATTN_BWD_CHUNK = 64  # channels per chunk of the generic route's logit products
+_ATTN_BWD_STAGES = 4  # the Hopper route's ring of swept tiles
+_ATTN_BWD_THREADS_HOPPER = 2 * 128 + 32  # two consumer warpgroups and a producer warp
+
+
+def attention_bwd_route(dtype: torch.dtype, ch: int) -> str:
+    """Which backward kernels take qkv of ``dtype`` at head dim ``ch``:
+    "hopper" (TMA + ``wgmma``) for bf16 at ch in {32, 64, 128}, "generic"
+    for fp32 or bf16 at any other ch >= 1; anything else raises. Both count
+    as ``attn_bwd_dq`` and ``attn_bwd_dkdv``."""
+    if dtype not in _ATTN_DTYPES:
+        raise TypeError(f"qkv: dtype {dtype} not supported (want {tuple(_ATTN_DTYPES)})")
+    if ch < 1:
+        raise ValueError(f"head dim {ch} not supported (kernels take any ch >= 1)")
+    return "hopper" if dtype == torch.bfloat16 and ch in _ATTN_HEAD_DIMS else "generic"
+
+
+def _attn_bwd_hopper_smem(ch: int, dkdv: bool) -> int:
+    """The Hopper route's dynamic shared memory (``Layout`` in
+    ``csrc/attention_bwd_hopper.cu``): 1 KB of alignment slack, the two own
+    tiles [64][ch] bf16, four stages of two swept tiles [sweep][ch], the row
+    values (dkdv: each stage's lse and D; dq: the own rows' D), the second
+    warpgroup's partial sums (128 threads x (dkdv: ch; dq: ch/2 + 4)
+    floats), nine mbarriers."""
+    sweep = 32 if dkdv and ch == 128 else 64
+    rowvals = _ATTN_BWD_STAGES * 2 * sweep * 4 if dkdv else _ATTN_BWD_ROWS * 4
+    merge = 128 * (ch if dkdv else ch // 2 + 4) * 4
+    tiles = 2 * _ATTN_BWD_ROWS * ch * 2 + _ATTN_BWD_STAGES * 2 * sweep * ch * 2
+    return 1024 + tiles + rowvals + merge + 8 * (2 * _ATTN_BWD_STAGES + 1)
 
 
 def attention_bwd_geometry(n: int, t: int, heads: int, ch: int, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Launch shape of both attention backward kernels
+    """Launch shape of both attention backward kernels on the route
+    ``attention_bwd_route`` picks. Hopper (``csrc/attention_bwd_hopper.cu``):
+    288 threads (two consumer warpgroups and a producer warp), grid (tiles of
+    64 own rows: queries for ``attn_bwd_dq``, keys for ``attn_bwd_dkdv``,
+    n*heads), swept tiles of ``sweep_dq`` / ``sweep_dkdv`` rows alternating
+    between the warpgroups through a 4-stage ring, one CTA per SM. Generic
     (``csrc/attention_bwd.cu``): 128 threads (four warps of 16 rows); grid
-    (tiles of 64 rows: queries for ``attn_bwd_dq``, keys for
-    ``attn_bwd_dkdv``, n*heads, output slices). Each CTA holds the gradient
-    of ``out_cols`` output channels (16, 32 or 64; slices of 64 past 64
-    channels, each recomputing the logits over every chunk of 64 channels).
-    Shared memory: four tiles [64][64 + 16 bytes of padding] of qkv's dtype;
-    fp32 also a [16][68] fp32 scratch per warp; ``attn_bwd_dkdv`` also the
-    swept tile's log-sum-exp and D."""
-    if ch < 1:
-        raise ValueError(f"head dim {ch} not supported (kernels take any ch >= 1)")
-    if dtype not in _ATTN_DTYPES:
-        raise TypeError(f"qkv: dtype {dtype} not supported (want {tuple(_ATTN_DTYPES)})")
-    out_cols = 16 if ch <= 16 else 32 if ch <= 32 else 64
+    (tiles of 64 rows, n*heads, output slices); each CTA holds the gradient
+    of ``out_cols`` output channels (16, 32 or 64 up to 64 channels, 128
+    past them: slices of 128, each recomputing the logits over every chunk
+    of 64 channels). Shared memory: for each of the four operands (own
+    x1, x2, swept y1, y2) a tile [64][64 + 16 bytes of padding] of qkv's
+    dtype per chunk of 64 channels where they fit (``resident_dq`` /
+    ``resident_dkdv``: the own tiles load once, a swept tile in one round),
+    else one (the chunks stream through it); fp32 also a [16][68] fp32
+    scratch per warp; ``attn_bwd_dkdv`` also the swept tile's log-sum-exp
+    and D."""
+    route = attention_bwd_route(dtype, ch)
+    tiles = -(-t // _ATTN_BWD_ROWS)
+    if route == "hopper":
+        return dict(route=route, threads=_ATTN_BWD_THREADS_HOPPER, grid=(tiles, n * heads), out_cols=ch,
+                    chunks=1, stages=_ATTN_BWD_STAGES, sweep_dq=64, sweep_dkdv=32 if ch == 128 else 64,
+                    smem_dq=_attn_bwd_hopper_smem(ch, False), smem_dkdv=_attn_bwd_hopper_smem(ch, True))
+    out_cols = 16 if ch <= 16 else 32 if ch <= 32 else 64 if ch <= 64 else 128
+    chunks = -(-ch // _ATTN_BWD_CHUNK)
     elt, pad = (4, 4) if dtype == torch.float32 else (2, 8)
-    smem = 4 * _ATTN_BWD_ROWS * (_ATTN_BWD_CHUNK + pad) * elt
-    if dtype == torch.float32:
-        smem += 4 * 16 * (_ATTN_BWD_ROWS + 4) * 4
-    return dict(threads=128, grid=(-(-t // _ATTN_BWD_ROWS), n * heads, -(-ch // out_cols)),
-                out_cols=out_cols, chunks=-(-ch // _ATTN_BWD_CHUNK), smem_dq=smem,
-                smem_dkdv=smem + 2 * _ATTN_BWD_ROWS * 4)
+    tile = _ATTN_BWD_ROWS * (_ATTN_BWD_CHUNK + pad) * elt
+    scratch = 4 * 16 * (_ATTN_BWD_ROWS + 4) * 4 if dtype == torch.float32 else 0
+
+    def smem(dkdv, nb):
+        return 4 * nb * tile + scratch + (2 * _ATTN_BWD_ROWS * 4 if dkdv else 0)
+
+    nb = {k: chunks if smem(k, chunks) <= MAX_SMEM_BYTES else 1 for k in (False, True)}
+    return dict(route=route, threads=128, grid=(tiles, n * heads, -(-ch // out_cols)),
+                out_cols=out_cols, chunks=chunks, resident_dq=nb[False] == chunks,
+                resident_dkdv=nb[True] == chunks, smem_dq=smem(False, nb[False]),
+                smem_dkdv=smem(True, nb[True]))
 
 
 def _attn_heads(t: torch.Tensor, num_heads: int, parts: int):
@@ -956,14 +1013,19 @@ def _attn_bwd_check(qkv, gout, num_heads):
     if gout.shape != (n, t, width // 3):
         raise ValueError(f"gout {tuple(gout.shape)} does not fit qkv {tuple(qkv.shape)}")
     ch = width // (3 * num_heads)
-    return n, t, ch, attention_bwd_geometry(n, t, num_heads, ch, qkv.dtype)
+    geo = attention_bwd_geometry(n, t, num_heads, ch, qkv.dtype)
+    # The Hopper route's tensor maps want 16-byte aligned bases (rows are
+    # whole 16-byte units at ch 32, 64 and 128).
+    if geo["route"] == "hopper" and (qkv.data_ptr() % 16 or gout.data_ptr() % 16):
+        raise ValueError("qkv and gout must be 16-byte aligned")
+    return n, t, ch, geo
 
 
 def _attn_bwd_flops(qkv, n, t, heads, ch, products):
     """The bound's work: ``products`` T^2*ch products (on the bf16 tensor
     cores, or the FMA units in fp32) and about 8 fp32 operations per logit.
-    dQ's function needs three (S, dP, dQ; the kernel's second sweep for the
-    log-sum-exp is its own choice), dK and dV's four (S, dP, dV, dK)."""
+    dQ's function needs three (S, dP, dQ), dK and dV's four (S, dP, dV,
+    dK): the function's work, whatever a kernel's design repeats."""
     products, elementwise = 2.0 * products * n * heads * t * t * ch, 8.0 * n * heads * t * t
     if qkv.dtype == torch.bfloat16:
         return dict(tensor_flops=products, fp32_flops=elementwise)
@@ -972,29 +1034,36 @@ def _attn_bwd_flops(qkv, n, t, heads, ch, products):
 
 def attn_bwd_dq_cuda(qkv, out, gout, num_heads, dqkv):
     """Launch ``attn_bwd_dq``: writes dQ into the q columns of ``dqkv``
-    (qkv's shape and dtype) and returns the fp32 (log-sum-exp, D), each
-    [N, H, T]. qkv, out and gout contiguous, of one dtype."""
+    (qkv's shape and dtype) and returns the workspace for
+    ``attn_bwd_dkdv_cuda``: the fp32 log-sum-exp and D, each [N, H, T], and
+    on the Hopper route sQ = rnd(s q) [N, T, H*ch] in bf16 (None on the
+    generic route). qkv, out and gout contiguous, of one dtype."""
     n, t, ch, geo = _attn_bwd_check(qkv, gout, num_heads)
     _require_cuda(out, "out", (qkv.dtype,))
     _require_cuda(dqkv, "dqkv", (qkv.dtype,))
     if out.shape != gout.shape or dqkv.shape != qkv.shape:
         raise ValueError(f"out {tuple(out.shape)} or dqkv {tuple(dqkv.shape)} does not fit qkv")
+    if geo["route"] == "hopper" and (out.data_ptr() % 16 or dqkv.data_ptr() % 16):
+        raise ValueError("out and dqkv must be 16-byte aligned")
     lse = torch.empty((n, num_heads, t), dtype=torch.float32, device=qkv.device)
     d = torch.empty_like(lse)
+    sq = torch.empty_like(out) if geo["route"] == "hopper" else None
     lib = _load()
     _check(lib, lib.ishape_attn_bwd_dq(
         qkv.data_ptr(), out.data_ptr(), gout.data_ptr(), dqkv.data_ptr(), lse.data_ptr(), d.data_ptr(),
-        _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch, geo["out_cols"], _stream(qkv),
+        None if sq is None else sq.data_ptr(), _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch,
+        geo["out_cols"], _stream(qkv),
     ), "attn_bwd_dq")
     LAUNCHES["attn_bwd_dq"] += 1
     _record("attn_bwd_dq", qkv, _nbytes(qkv, out, gout, lse, d) + _nbytes(dqkv) // 3,
             **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=3))
-    return lse, d
+    return lse, d, sq
 
 
-def attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv):
+def attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv, sq=None):
     """Launch ``attn_bwd_dkdv``: writes dK and dV into the k and v columns
-    of ``dqkv`` from the workspace of ``attn_bwd_dq_cuda``."""
+    of ``dqkv`` from the workspace of ``attn_bwd_dq_cuda`` (lse, d and, on
+    the Hopper route, sq)."""
     n, t, ch, geo = _attn_bwd_check(qkv, gout, num_heads)
     _require_cuda(dqkv, "dqkv", (qkv.dtype,))
     for name, w in (("lse", lse), ("d", d)):
@@ -1003,9 +1072,18 @@ def attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv):
             raise ValueError(f"{name} {tuple(w.shape)} is not [{n}, {num_heads}, {t}]")
     if dqkv.shape != qkv.shape:
         raise ValueError(f"dqkv {tuple(dqkv.shape)} does not fit qkv {tuple(qkv.shape)}")
+    if geo["route"] == "hopper":
+        if sq is None:
+            raise ValueError("the Hopper route sweeps the sQ workspace of attn_bwd_dq_cuda")
+        _require_cuda(sq, "sq", (torch.bfloat16,))
+        if sq.shape != gout.shape:
+            raise ValueError(f"sq {tuple(sq.shape)} does not fit gout {tuple(gout.shape)}")
+        if dqkv.data_ptr() % 16 or sq.data_ptr() % 16:
+            raise ValueError("dqkv and sq must be 16-byte aligned")
     lib = _load()
     _check(lib, lib.ishape_attn_bwd_dkdv(
-        qkv.data_ptr(), gout.data_ptr(), lse.data_ptr(), d.data_ptr(), dqkv.data_ptr(),
+        qkv.data_ptr(), gout.data_ptr(), lse.data_ptr(), d.data_ptr(),
+        None if geo["route"] != "hopper" else sq.data_ptr(), dqkv.data_ptr(),
         _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch, geo["out_cols"], _stream(qkv),
     ), "attn_bwd_dkdv")
     LAUNCHES["attn_bwd_dkdv"] += 1
@@ -1017,8 +1095,8 @@ def attention_bwd_cuda(qkv, out, gout, num_heads):
     """Both attention backward kernels: dqkv in qkv's dtype and layout."""
     gout = gout.to(qkv.dtype).contiguous()
     dqkv = torch.empty_like(qkv)
-    lse, d = attn_bwd_dq_cuda(qkv, out, gout, num_heads, dqkv)
-    attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv)
+    lse, d, sq = attn_bwd_dq_cuda(qkv, out, gout, num_heads, dqkv)
+    attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv, sq=sq)
     return dqkv
 
 

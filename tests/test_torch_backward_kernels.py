@@ -192,17 +192,89 @@ def test_attention_bwd_workspace_is_logsumexp_and_d():
                                atol=1e-5, rtol=1e-6)
 
 
+def online_dq_model(qkv, out, gout, heads, warpgroups, sweep=64):
+    """A tile-by-tile model of ``attn_bwd_dq``'s one key sweep: ``warpgroups``
+    sum every ``warpgroups``-th key tile of ``sweep`` keys each (two on the
+    Hopper route, one on the generic), each with a running row maximum m and
+    sum l; dS = exp(S - m) (dP - D) rounded to qkv's dtype as the kernel
+    rounds it, the dQ sums rescaled when m moves; then the partial sums merged
+    and divided by the row sum. Returns (dQ [N, T, H, ch], lse, D)."""
+    qs, ks, logits, dp, s, rnd = hk._attn_bwd_terms(qkv, gout, heads)
+    (o,), (do,) = hk._attn_heads(out, heads, 1), hk._attn_heads(gout, heads, 1)
+    d = (do * o).sum(-1).transpose(1, 2)
+    n, h, t, _ = logits.shape
+    parts = []
+    for w in range(warpgroups):
+        m = torch.full((n, h, t), -torch.inf)
+        l, acc = torch.zeros((n, h, t)), torch.zeros((n, h, t, qs.shape[-1]))
+        for j in range(w, -(-t // sweep), warpgroups):
+            keys = slice(j * sweep, (j + 1) * sweep)
+            mn = torch.maximum(m, logits[..., keys].amax(-1))
+            c = torch.exp(m - mn)
+            p = torch.exp(logits[..., keys] - mn[..., None])
+            l = l * c + p.sum(-1)
+            ds = rnd(p * (dp[..., keys] - d[..., None]))
+            acc = acc * c[..., None] + torch.einsum("nhts,nshc->nhtc", ds, ks[:, keys])
+            m = mn
+        parts.append((m, l, acc))
+    mt = torch.stack([m for m, _, _ in parts]).amax(0)
+    lt = sum(l * torch.exp(m - mt) for m, l, _ in parts)
+    acc = sum(a * torch.exp(m - mt)[..., None] for m, _, a in parts)
+    return (acc / lt[..., None] * s).transpose(1, 2), mt + torch.log(lt), d
+
+
 @pytest.mark.parametrize(
-    "n,t,heads,ch,dtype,grid,out_cols,chunks",
-    [(8, 1024, 8, 64, torch.bfloat16, (16, 64, 1), 64, 1),  # chairs 32^2 level, train batch 8
-     (1, 256, 4, 192, torch.bfloat16, (4, 4, 3), 64, 3),  # heads-by-count 16^2
-     (2, 64, 4, 8, torch.float32, (1, 8, 1), 16, 1),  # the tiny preset
-     (1, 100, 1, 320, torch.float32, (2, 1, 5), 64, 5)],
+    "dtype,n,t,heads,ch",
+    [("bfloat16", 1, 136, 2, 64),  # Hopper route: three key tiles (two, one per warpgroup), a tail
+     ("bfloat16", 2, 72, 1, 32),  # Hopper route: the second warpgroup's one tile is a tail
+     ("float32", 1, 136, 2, 16)],  # generic route: one sweep by one CTA
 )
-def test_attention_bwd_geometry(n, t, heads, ch, dtype, grid, out_cols, chunks):
+def test_attention_bwd_online_dq_matches_plain_and_jax_vjp(dtype, n, t, heads, ch):
+    """The one-sweep recurrence (``online_dq_model``) against
+    ``attn_bwd_dq_plain`` (dQ, log-sum-exp, D) and, with dK and dV from
+    ``attn_bwd_dkdv_plain`` on its workspace, against ``jax.vjp`` of
+    ``pk.attention_qkv`` in interpret mode, tolerance ``ATTN_TOL``: the
+    online form's other bf16 rounding of dS stays inside the gates."""
+    import jax
+    import jax.numpy as jnp
+
+    from ishapediting_tpu.ops import pallas_kernels as pk
+
+    dt = getattr(torch, dtype)
+    qkv, gout = attn_inputs(t + 3 * ch, n, t, heads, ch, dt)
+    out = hk.attention_qkv(qkv, heads)
+    warpgroups = 2 if hk.attention_bwd_route(dt, ch) == "hopper" else 1
+    dq, lse, d = online_dq_model(qkv, out, gout, heads, warpgroups)
+    dq_p, lse_p, d_p = hk.attn_bwd_dq_plain(qkv, out, gout, heads)
+    assert rel_err(dq.numpy(), dq_p.numpy()) <= ATTN_TOL[dtype]
+    torch.testing.assert_close(lse, lse_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(d, d_p, atol=0, rtol=0)
+    dk, dv = hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads)
+    got = torch.stack([dq, dk, dv], dim=3).reshape(qkv.shape).to(dt)
+    (want,) = jax.jit(lambda a, g: jax.vjp(lambda b: pk.attention_qkv(b, heads), a)[1](g))(
+        jnp.array(qkv.float().numpy(), dtype), jnp.array(gout.float().numpy(), dtype))
+    assert rel_err(got.float().numpy(), np.array(want)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize(
+    "n,t,heads,ch,dtype,route,threads,grid,out_cols,chunks",
+    [(8, 1024, 8, 64, torch.bfloat16, "hopper", 288, (16, 64), 64, 1),  # chairs 32^2 level, train batch 8
+     (1, 1024, 8, 64, torch.bfloat16, "hopper", 288, (16, 8), 64, 1),  # the same at a drag step's batch 1
+     (1, 1000, 2, 128, torch.bfloat16, "hopper", 288, (16, 2), 128, 1),  # a TMA tail; dkdv sweeps 32 rows
+     (1, 256, 4, 192, torch.bfloat16, "generic", 128, (4, 4, 2), 128, 3),  # heads-by-count 16^2
+     (2, 64, 4, 8, torch.float32, "generic", 128, (1, 8, 1), 16, 1),  # the tiny preset
+     (1, 100, 1, 320, torch.float32, "generic", 128, (2, 1, 3), 128, 5)],
+)
+def test_attention_bwd_geometry(n, t, heads, ch, dtype, route, threads, grid, out_cols, chunks):
+    """The route and launch shape: the Hopper route's CTA per 64 own rows and
+    batch*head; the generic route's output slices of 128 channels past 64
+    (ch 192 and 256: two logit passes)."""
     geo = hk.attention_bwd_geometry(n, t, heads, ch, dtype)
-    assert (geo["grid"], geo["out_cols"], geo["chunks"]) == (grid, out_cols, chunks)
-    assert geo["smem_dkdv"] <= hk.MAX_SMEM_BYTES
+    assert geo["route"] == hk.attention_bwd_route(dtype, ch) == route
+    assert (geo["threads"], geo["grid"], geo["out_cols"], geo["chunks"]) == (threads, grid, out_cols, chunks)
+    assert max(geo["smem_dq"], geo["smem_dkdv"]) <= hk.MAX_SMEM_BYTES
+    if route == "hopper":
+        assert geo["sweep_dkdv"] == (32 if ch == 128 else 64)
 
 
 def test_cpu_backward_runs_the_plain_composition_uncounted():
@@ -275,21 +347,31 @@ def test_gn_bwd_kernels_on_card(cuda_device, shape, dtype, film):
     "n,t,heads,ch,dtype",
     [(2, 1024, 8, 64, torch.bfloat16), (1, 256, 4, 192, torch.bfloat16), (1, 64, 4, 256, torch.bfloat16),
      (2, 64, 4, 8, torch.float32), (1, 64, 4, 16, torch.float32), (1, 100, 2, 64, torch.float32),
-     (1, 72, 1, 320, torch.bfloat16), (1, 33, 1, 7, torch.float32)],
+     (1, 72, 1, 320, torch.bfloat16), (1, 33, 1, 7, torch.float32),
+     # the Hopper route at ch 32 and 128 with a TMA tail, and a drag step's batch 1
+     (1, 1000, 2, 32, torch.bfloat16), (1, 1000, 2, 128, torch.bfloat16), (1, 1024, 8, 64, torch.bfloat16),
+     # the generic route's streamed chunks (past its shared memory), bf16 and fp32
+     (1, 72, 1, 512, torch.bfloat16), (1, 40, 1, 320, torch.float32)],
 )
 def test_attention_bwd_kernels_on_card(cuda_device, n, t, heads, ch, dtype):
-    """attn_bwd_dq's dQ and workspace against ``attn_bwd_dq_plain``, then
-    attn_bwd_dkdv's dK, dV against ``attn_bwd_dkdv_plain`` on the kernel's
-    workspace: fp32 (FMA) 1e-5, bf16 (bf16 operands, fp32 sums) 2e-2 of the
-    largest; one launch each."""
+    """attn_bwd_dq's dQ and workspace against ``attn_bwd_dq_plain`` (on the
+    Hopper route also its sQ against rnd(s q), exactly), then attn_bwd_dkdv's
+    dK, dV against ``attn_bwd_dkdv_plain`` on the kernel's workspace: fp32
+    (FMA) 1e-5, bf16 (bf16 operands, fp32 sums) 2e-2 of the largest; one
+    launch each."""
     qkv, gout = attn_inputs(n + t + ch, n, t, heads, ch, dtype)
     qkv, gout = qkv.to(cuda_device), gout.to(cuda_device)
     out = hk.attention_qkv(qkv, heads)
     before = dict(hk.LAUNCHES)
     dqkv = torch.zeros_like(qkv)
-    lse, d = hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv)
-    hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv)
+    lse, d, sq = hk.attn_bwd_dq_cuda(qkv, out, gout, heads, dqkv)
+    hk.attn_bwd_dkdv_cuda(qkv, gout, lse, d, heads, dqkv, sq=sq)
     torch.cuda.synchronize()
+    if hk.attention_bwd_route(dtype, ch) == "hopper":  # the workspace's sQ is rnd(s q)
+        q = qkv.view(n, t, heads, 3, ch)[:, :, :, 0]
+        assert torch.equal(sq.view(n, t, heads, ch), (q * ch ** -0.25).to(dtype))
+    else:
+        assert sq is None
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     dq, lse_p, d_p = hk.attn_bwd_dq_plain(qkv, out, gout, heads)
     dk, dv = hk.attn_bwd_dkdv_plain(qkv, gout, lse, d, heads)
@@ -299,3 +381,15 @@ def test_attention_bwd_kernels_on_card(cuda_device, n, t, heads, ch, dtype):
         assert rel_err(g.cpu().numpy(), w.cpu().numpy()) <= tol, name
     assert hk.LAUNCHES["attn_bwd_dq"] == before["attn_bwd_dq"] + 1
     assert hk.LAUNCHES["attn_bwd_dkdv"] == before["attn_bwd_dkdv"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch", [32, 64, 128])
+def test_attention_bwd_hopper_smem_matches_the_library(cuda_device, ch):
+    """The Python mirror of the Hopper route's shared memory against the
+    library's."""
+    lib = hk._load()
+    geo = hk.attention_bwd_geometry(1, 256, 2, ch, torch.bfloat16)
+    assert (geo["smem_dq"], geo["smem_dkdv"]) == (lib.ishape_attn_bwd_wgmma_smem(0, ch),
+                                                  lib.ishape_attn_bwd_wgmma_smem(1, ch))
+
