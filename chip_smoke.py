@@ -23,7 +23,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    (batch 1), the heads-by-count and the fp32 UNets' shapes, timed beside
    the twins, the bound and the backward of
    ``F.scaled_dot_product_attention``, each row naming the route it ran
-   (``hk.attention_bwd_route``: "hopper" or "generic"); then gradients through each
+   (``hk.attention_bwd_route``: "hopper" or "generic"), the GroupNorm
+   pair's finished outputs bit for bit what the twin's finish makes of its
+   own partials, two runs bit-equal, and one ``GroupNormSiLU`` backward's
+   trace holding its two kernels and nothing else; then gradients through each
    kernel's autograd Function (kernel forward, backward kernels) against
    autograd through the plain composition, at every chairs input at batch
    1 and at the fp32 UNets' inputs, with and without FiLM, one launch of
@@ -588,33 +591,50 @@ def backward_kernel_checks(hk, dev, report) -> None:
         g = effective_groups(shape[-1], 32)
         part = hk.gn_stats_cuda(x, g)
         tag = f"{list(shape)} {str(dtype)[6:]}{' film' if film else ''}"
-        sums = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
+        red = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
+        dx = hk.gn_bwd_apply_cuda(x, gy, red.stats, scale, bias, film=f)
         torch.cuda.synchronize()
-        err_r = check_rel(f"gn_bwd_reduce {tag}, (S1, S2) partials", sums,
-                          hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f), GN_SUMS_TOL[dtype])
-        coef = hk.gn_bwd_coefficients(sums, scale, bias, shape[1] * shape[2], g, f)[0]
-        dx = hk.gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, film=f)
-        torch.cuda.synchronize()
-        err_a = check_rel(f"gn_bwd_apply {tag}, dx", dx,
-                          hk.gn_bwd_apply_plain(x, part, gy, coef, scale, bias, film=f), BWD_TOL[dtype])
+        want = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
+        err_r = check_rel(f"gn_bwd_reduce {tag}, (S1, S2) partials", red.sums, want.sums, GN_SUMS_TOL[dtype])
+        # the finished outputs: against the twin's, and bit for bit what the
+        # twin's finish makes of the kernel's own partials (same sums, same order)
+        cpu = [t.cpu() for t in (red.sums, red.stats[:, 0], red.stats[:, 1], scale, bias)]
+        exact = hk.gn_bwd_finish_plain(*cpu, shape[1] * shape[2], f and tuple(t.cpu() for t in f))
+        outs = [("mean, rstd", red.stats[:, :2], want.stats[:, :2]), ("A, B", red.stats[:, 2:], want.stats[:, 2:])]
+        outs += [(k, getattr(red, k), getattr(want, k)) for k in ("dscale", "dbias", "dfs", "dfb")
+                 if getattr(red, k) is not None]
+        for what, got, w in outs:  # a gradient stored in bf16 also carries that one rounding
+            tol = BWD_TOL[BF16] if got.dtype == BF16 else GN_SUMS_TOL[dtype]
+            err_r = max(err_r, check_rel(f"gn_bwd_reduce {tag}, {what}", got, w, tol))
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(red[1:], exact) if a is not None):
+            fail(f"gn_bwd_reduce {tag}: the finished outputs are not what its partials give in the twin's order")
+        err_a = check_rel(f"gn_bwd_apply {tag}, dx", dx, hk.gn_bwd_apply_plain(x, gy, red.stats, scale, bias,
+                                                                                film=f), BWD_TOL[dtype])
+        red2 = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
+        dx2 = hk.gn_bwd_apply_cuda(x, gy, red2.stats, scale, bias, film=f)
+        if not all(a is None or torch.equal(a, b) for a, b in zip((*red, dx), (*red2, dx2))):
+            fail(f"GroupNorm backward {tag}: two runs on one input differ")
         params = nbytes(part, scale, bias, *(f or ()))
-        rb_ms, rb_by = bound_ms(nbytes(x, gy, sums) + params, fp32_flops=16 * x.numel())
-        ab_ms, ab_by = bound_ms(nbytes(x, gy, dx, coef) + params, fp32_flops=18 * x.numel())
+        grads = nbytes(*(t for t in red[2:] if t is not None))
+        rb_ms, rb_by = bound_ms(nbytes(x, gy, red.sums, red.stats) + params + grads, fp32_flops=16 * x.numel())
+        ab_ms, ab_by = bound_ms(nbytes(x, gy, dx, red.stats) + params, fp32_flops=18 * x.numel())
         r_ms = device_ms(lambda: hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f),
                          kernel="gn_bwd_reduce_kernel")
-        a_ms = device_ms(lambda: hk.gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, film=f),
+        a_ms = device_ms(lambda: hk.gn_bwd_apply_cuda(x, gy, red.stats, scale, bias, film=f),
                          kernel="gn_bwd_apply_kernel")
         rp_ms = device_ms(lambda: hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f), 5)
-        ap_ms = device_ms(lambda: hk.gn_bwd_apply_plain(x, part, gy, coef, scale, bias, film=f), 5)
+        ap_ms = device_ms(lambda: hk.gn_bwd_apply_plain(x, gy, red.stats, scale, bias, film=f), 5)
         all_ms = device_ms(lambda: hk.gn_silu_bwd_cuda(x, part, gy, scale, bias, film=f))
         say(f"    gn_bwd_reduce {r_ms:.4f} ms (plain {rp_ms:.4f}, bound {rb_ms:.4f}), gn_bwd_apply "
-            f"{a_ms:.4f} ms (plain {ap_ms:.4f}, bound {ab_ms:.4f}); the whole backward with its torch "
-            f"ops {all_ms:.4f} ms")
-        base = dict(shape=list(shape), dtype=str(dtype)[6:], film=film, library_ms=None, backward_ms=all_ms)
+            f"{a_ms:.4f} ms (plain {ap_ms:.4f}, bound {ab_ms:.4f}); the whole backward {all_ms:.4f} ms "
+            f"(the kernels {r_ms + a_ms:.4f}); two runs bit-equal")
+        base = dict(shape=list(shape), dtype=str(dtype)[6:], film=film, library_ms=None, backward_ms=all_ms,
+                    kernels_ms=r_ms + a_ms)
         rows["gn_bwd_reduce"].append(dict(base, ms=r_ms, plain_ms=rp_ms, bound_ms=rb_ms, bound_by=rb_by,
                                           max_abs_err=err_r))
         rows["gn_bwd_apply"].append(dict(base, ms=a_ms, plain_ms=ap_ms, bound_ms=ab_ms, bound_by=ab_by,
                                          max_abs_err=err_a))
+    gn_backward_trace(hk, dev)
     for n, t, heads, ch, dtype in BWD_ATTN_CASES:
         qkv = torch.randn((n, t, heads * 3 * ch), generator=gen, device=dev).to(dtype)
         gout = torch.randn((n, t, heads * ch), generator=gen, device=dev).to(dtype)
@@ -661,11 +681,36 @@ def backward_kernel_checks(hk, dev, report) -> None:
         rows["attn_bwd_dkdv"].append(dict(base, ms=kv_ms, plain_ms=kvp_ms, bound_ms=kvb_ms, bound_by=kvb_by,
                                           max_abs_err=err_kv))
         del o, leaves
-    tols = {"gn_bwd_reduce": "bf16 1e-3, fp32 1e-4 of the largest partial",
+    tols = {"gn_bwd_reduce": "bf16 1e-3, fp32 1e-4 of the largest partial, statistic and fp32 gradient; "
+                             "2e-2 of the largest gradient stored in bf16",
             "gn_bwd_apply": "bf16 2e-2, fp32 1e-5 of the largest",
             "attn_bwd_dq": "bf16 2e-2, fp32 1e-5 of the largest", "attn_bwd_dkdv": "bf16 2e-2, fp32 1e-5 of the largest"}
     for name, r in rows.items():
         report[name] = dict(r[0], tol=tols[name], shapes=r)
+
+
+def gn_backward_trace(hk, dev) -> None:
+    """One ``GroupNormSiLU`` backward (bf16, FiLM, every gradient asked for)
+    under the profiler: exactly the two backward kernels, once each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ishapediting_tpu_torch.utils.device import kernel_rows
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x, scale, bias, f = gn_inputs(gen, (2, 32, 32, 256), BF16, True, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, *f)]
+    y = hk.groupnorm_silu(leaves[0], leaves[1], leaves[2], film=tuple(leaves[3:]))
+    gy = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+    torch.autograd.grad(y, leaves, gy, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+    names = sorted(f"{e.key[:60]} x{e.count}" for e in kernel_rows(prof))
+    say(f"  one GroupNormSiLU backward's device work: {names}")
+    if len(names) != 2 or not ("gn_bwd_apply_kernel" in names[0] and "gn_bwd_reduce_kernel" in names[1]) or \
+            not all(n.endswith(" x1") for n in names):
+        fail(f"a GroupNormSiLU backward ran {names}, not the two backward kernels once each")
 
 
 def backward_checks(hk, dev, report) -> None:

@@ -22,9 +22,11 @@ Two ops, eight kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 - The backward halves of both (in place of the JAX package's VJPs
   ``_gn_silu_bwd`` and ``_attn_bwd``; the kernels emulate eager PyTorch's
   differentiation of the port's plain composition on the card): the
-  GroupNorm-SiLU backward in two launches, ``gn_bwd_reduce`` (per-channel
-  sums of the cotangent through SiLU, FiLM and the affine) and
-  ``gn_bwd_apply`` (dx), beside the forward in ``csrc/groupnorm_silu.cu``;
+  GroupNorm-SiLU backward in two launches and nothing else,
+  ``gn_bwd_reduce`` (per-channel sums of the cotangent through SiLU, FiLM
+  and the affine, finished in the kernel into the parameters' gradients and
+  the group terms of dx) and ``gn_bwd_apply`` (dx), beside the forward in
+  ``csrc/groupnorm_silu.cu``;
   the attention backward in two, ``attn_bwd_dq`` and ``attn_bwd_dkdv``
   (every dtype and head dim the forward takes), each with two routes as
   the forward has: bf16 at ch in {32, 64, 128} on the TMA + ``wgmma``
@@ -39,9 +41,9 @@ source, started together, then one link) and bind through ctypes.
 ``LAUNCHES`` counts each kernel launch, so that a run can show it went
 through the kernels; ``record_launches`` also lists each launch's shape and
 the bytes and operations its bound counts. Launch shapes are computed here
-(``gn_stats_geometry``, ``gn_norm_geometry``, ``attention_geometry``,
-``attention_generic_geometry``, ``attention_bwd_geometry``) and passed to
-the C entry points.
+(``gn_stats_geometry``, ``gn_norm_geometry``, ``gn_bwd_geometry``,
+``attention_geometry``, ``attention_generic_geometry``,
+``attention_bwd_geometry``) and passed to the C entry points.
 """
 
 from __future__ import annotations
@@ -49,11 +51,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import fcntl
+import functools
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -194,9 +197,9 @@ def _load() -> ctypes.CDLL:
             lib.ishape_attention_generic.restype = i
             lib.ishape_attention_generic_smem.argtypes = [i, i]
             lib.ishape_attention_generic_smem.restype = i
-            lib.ishape_gn_bwd_reduce.argtypes = [p] * 7 + [i] * 6 + [f] + [i] * 5 + [p]
+            lib.ishape_gn_bwd_reduce.argtypes = [ctypes.POINTER(_GnBwdArgs), p]
             lib.ishape_gn_bwd_reduce.restype = i
-            lib.ishape_gn_bwd_apply.argtypes = [p] * 8 + [i] * 6 + [f] + [i] * 5 + [p]
+            lib.ishape_gn_bwd_apply.argtypes = [ctypes.POINTER(_GnBwdArgs), p]
             lib.ishape_gn_bwd_apply.restype = i
             lib.ishape_attn_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [p]
             lib.ishape_attn_bwd_dq.restype = i
@@ -445,18 +448,16 @@ def gn_norm_cuda(x, part, scale, bias, eps=1e-5, film=None):
     return y
 
 
-def _gn_params(x, part, scale, bias, film, backward=False):
-    """gamma, beta [C] and the FiLM terms [N, 2, C] (None without FiLM) as
-    the kernels read them: fp32, contiguous, on x's card. The forward reads
-    (fs, fb), the backward (1 + fs, fb) (``_gn_bwd_film``)."""
+def _gn_params(x, part, scale, bias, film):
+    """gamma, beta [C] and the FiLM terms (fs, fb) [N, 2, C] (None without
+    FiLM) as the normalize kernel reads them: fp32, contiguous, on x's card."""
     n, c = x.shape[0], x.shape[-1]
     gamma = scale.detach().float().reshape(c).contiguous()
     beta = bias.detach().float().reshape(c).contiguous()
     film_t = None
     if film is not None:
-        film_t = _gn_bwd_film(film, n, c) if backward else torch.stack(
-            [film[0].detach().reshape(n, c), film[1].detach().reshape(n, c)], dim=1).float()
-        film_t = film_t.contiguous()
+        film_t = torch.stack([film[0].detach().reshape(n, c), film[1].detach().reshape(n, c)], dim=1)
+        film_t = film_t.float().contiguous()
     for name, t in (("part", part), ("scale", gamma), ("bias", beta), ("film", film_t)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -488,99 +489,149 @@ def groupnorm_silu_cuda(x, scale, bias, num_groups=32, eps=1e-5, film=None):
 # fs's dtype; nothing rounds in fp32), the reference of chip_smoke.py's
 # gradient gate. The JAX package's VJP rounds elsewhere: it differentiates
 # ``_gn_silu_reference``, which forms a*(1 + fs) + fb in fp32 and rounds
-# once. gn_bwd_reduce writes
-# S1, S2 as partials over row blocks, gn_bwd_apply writes dx; the [N, C]
-# arithmetic between them is gn_bwd_coefficients, a few torch ops.
+# once. gn_bwd_reduce writes S1, S2 as partials over row blocks, and its
+# last block per (sample, channel block) finishes them: the gradients of the
+# parameters and, per group, (mean, rstd, A, B); gn_bwd_apply writes dx.
+
+_GN_BWD_THREADS = 512  # threads per backward block, at most (the kernels' launch bound)
+_GN_BWD_BLOCKS_PER_SM = 2  # resident at once: one wave
+_GN_BWD_ROW_SPLITS = 32  # row blocks per (sample, channel block), about, where channel blocks can narrow
+_GN_BWD_MIN_SPAN = 64  # bytes of a row one block reads, at least (two 32-byte sectors)
+_GN_BWD_MAX_WIDTH = 512  # channels per block, at most (so a group of at most 512 channels)
+_GN_NEEDS_ALL = (True,) * 5  # gradients wanted: x, scale, bias, film scale, film shift
+
+
+class GnBwdOut(NamedTuple):
+    """What ``gn_bwd_reduce`` (and its twin) returns: the workspace's
+    (S1, S2) partials [N, grid_x, 2, C] fp32, ``stats`` [N, 4, G] fp32 (mean,
+    rstd, A, B per group: what ``gn_bwd_apply`` reads), and the parameters'
+    gradients in their dtypes and shapes (None where not asked for, and dfs,
+    dfb without FiLM)."""
+    sums: torch.Tensor
+    stats: torch.Tensor
+    dscale: Optional[torch.Tensor]
+    dbias: Optional[torch.Tensor]
+    dfs: Optional[torch.Tensor]
+    dfb: Optional[torch.Tensor]
 
 
 def gn_bwd_geometry(x: torch.Tensor, groups: int, *ts: torch.Tensor) -> dict:
-    """Launch shape of ``gn_bwd_reduce`` and ``gn_bwd_apply`` on x and the
-    tensors ``ts`` it reads or writes beside it: that of ``gn_norm``, a
-    thread per channel vector walking rows with a grid stride, with 16-byte
-    vectors only where they lie in one group and the pointers allow (else
-    one channel per thread). Row block bx of the reduce writes partial bx,
-    so there are grid_x partials per (sample, channel)."""
+    """Launch shape of ``gn_bwd_reduce`` and ``gn_bwd_apply`` on x [N, H, W, C]
+    and the tensors ``ts`` they read or write beside it: block (bdx, bdy),
+    grid (grid_x row blocks, grid_c channel blocks, N). Thread (tx, ty) of
+    block (bx, cb) owns channel vector cb*bdx + tx (16 bytes where a vector
+    lies in one group and the pointers allow, else one channel) and rows
+    bx*bdy + ty + k*row_step. A channel block holds whole groups (bdx a
+    power-of-two multiple of a group's vectors, at most a warp's 32 unless
+    one group is wider); where a sample's blocks would leave more than about
+    ``_GN_BWD_ROW_SPLITS`` row blocks for the reduce's finishing block to sum,
+    channel blocks narrow, down to ``_GN_BWD_MIN_SPAN`` bytes of a row."""
     n, h, w, c = x.shape
+    hw, cg = h * w, c // groups
     vec = _GN_VEC[x.dtype]
-    if (c // groups) % vec or any(t.data_ptr() % 16 for t in (x, *ts)):
+    if cg % vec or any(t.data_ptr() % 16 for t in (x, *ts)):
         vec = 1
-    return gn_norm_geometry(n, h * w, c, vec)
+    if cg > _GN_BWD_MAX_WIDTH:
+        raise ValueError(f"groups of {cg} channels: the backward kernels take at most {_GN_BWD_MAX_WIDTH}")
+    vg, vpr = cg // vec, c // vec  # vectors per group and per row
+    blocks = _GN_BWD_BLOCKS_PER_SM * NUM_SMS
+    want_c = -(-blocks // (n * _GN_BWD_ROW_SPLITS))
+    min_bdx = -(-_GN_BWD_MIN_SPAN // (vec * x.element_size()))
+    m = 1
+    while vg * m * 2 <= min(32, vpr):
+        m *= 2
+    while m > 1 and -(-vpr // (vg * m)) < want_c and vg * m // 2 >= min_bdx:
+        m //= 2
+    bdx = vg * m
+    bdy = max(1, _GN_BWD_THREADS // bdx)
+    grid_c = -(-vpr // bdx)
+    grid_x = max(1, min(-(-hw // bdy), blocks // (n * grid_c)))  # no block past the one wave
+    return dict(vec=vec, block=(bdx, bdy), grid=(grid_x, grid_c, n), row_step=grid_x * bdy)
 
 
-def gn_bwd_reduce_plain(x, part, gy, scale, bias, eps=1e-5, film=None):
+def _sum_in_order(ts):
+    """((t0 + t1) + t2) + ...: a sum in the order the kernels take it."""
+    return functools.reduce(torch.add, ts)
+
+
+def gn_bwd_reduce_plain(x, part, gy, scale, bias, eps=1e-5, film=None, need=_GN_NEEDS_ALL) -> GnBwdOut:
     """Plain version of ``gn_bwd_reduce``: fp32 (S1, S2) per (sample, row
-    block, channel) as [N, S, 2, C], the rows split as the kernel splits
-    them (row r to block (r mod row_step) // bdy, ``gn_bwd_geometry``)."""
+    block, channel) as [N, S, 2, C], the rows split as the kernel splits them
+    (row r to block (r mod row_step) // bdy, ``gn_bwd_geometry``), then what
+    its finishing blocks compute from them (``gn_bwd_finish_plain``) with the
+    statistics merged from the forward's partials."""
     n, h, w, c = x.shape
     geo = gn_bwd_geometry(x, part.shape[1], gy)
-    gz, xhat = _gn_bwd_terms(x, part, gy, scale, bias, eps, film)
+    mean, rstd = merge_partials(part, eps)
+    gz, xhat = _gn_bwd_terms(x, mean, rstd, gy, scale, bias, film)
     hw = h * w
     split = (torch.arange(hw, device=x.device) % geo["row_step"]) // geo["block"][1]
     terms = torch.stack([gz, gz * xhat], dim=3).reshape(n, hw, 2, c)
     sums = torch.zeros((n, geo["grid"][0], 2, c), dtype=torch.float32, device=x.device)
-    return sums.index_add_(1, split, terms)
+    sums.index_add_(1, split, terms)
+    return GnBwdOut(sums, *gn_bwd_finish_plain(sums, mean, rstd, scale, bias, hw, film, need))
 
 
-def _gn_bwd_terms(x, part, gy, scale, bias, eps, film):
+def gn_bwd_finish_plain(sums, mean, rstd, scale, bias, hw, film=None, need=_GN_NEEDS_ALL):
+    """What ``gn_bwd_reduce``'s finishing blocks compute from the partials
+    ``sums`` [N, S, 2, C] and the statistics ``mean``, ``rstd`` [N, G], in
+    their order and rounding (so the same partials give the same bits):
+    (stats [N, 4, G], dscale, dbias, dfs, dfb) as ``GnBwdOut`` holds them.
+    S1, S2 sum the partials in row-block order; A, B sum k*S1, k*S2 over a
+    group's channels in order, over hw*cg; dbias and dscale sum t1*S1,
+    t1*S2 over the samples in order."""
+    n, c = sums.shape[0], sums.shape[-1]
+    groups = mean.shape[1]
+    cg = c // groups
+    s1, s2 = _sum_in_order(sums.unbind(1)).unbind(1)
+    gamma, beta = scale.detach().float().reshape(c), bias.detach().float().reshape(c)
+    t1 = None if film is None else (1 + film[0].detach()).reshape(n, c).float()
+    k = gamma if t1 is None else gamma * t1
+    ab = _sum_in_order(torch.stack([k * s1, k * s2], 1).reshape(n, 2, groups, cg).unbind(-1)) / (hw * cg)
+    stats = torch.stack([mean.float(), rstd.float(), ab[:, 0], ab[:, 1]], 1)
+    w1, w2 = (s1, s2) if t1 is None else (t1 * s1, t1 * s2)
+    dscale = _sum_in_order(w2.unbind(0)).to(scale.dtype).reshape(scale.shape) if need[1] else None
+    dbias = _sum_in_order(w1.unbind(0)).to(bias.dtype).reshape(bias.shape) if need[2] else None
+    dfs = dfb = None
+    if film is not None:
+        fs, fb = film
+        dfs = (gamma * s2 + beta * s1).to(fs.dtype).reshape(fs.shape) if need[3] else None
+        dfb = s1.to(fb.dtype).reshape(fb.shape) if need[4] else None
+    return stats, dscale, dbias, dfs, dfb
+
+
+def _gn_bwd_terms(x, mean, rstd, gy, scale, bias, film):
     """gz (the cotangent at the SiLU's input, at the rounding points of
     eager PyTorch's backward of the plain composition on the card) and
-    xhat, each [N, H, W, C] fp32, from the merged partials."""
+    xhat, each [N, H, W, C] fp32, from the statistics ``mean``, ``rstd``
+    [N, G]."""
     n, h, w, c = x.shape
-    g = part.shape[1]
+    g = mean.shape[1]
     rnd = lambda t: t.to(x.dtype).float()  # noqa: E731
-    mu, rstd = (t.repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c) for t in merge_partials(part, eps))
-    xhat = (x.float() - mu) * rstd
+    mu, rs = (t.repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c) for t in (mean, rstd))
+    xhat = (x.float() - mu) * rs
     z = rnd(xhat * scale.float().reshape(c) + bias.float().reshape(c))
     if film is not None:
-        t1, fb = (t.reshape(n, 1, 1, c) for t in _gn_bwd_film(film, n, c).unbind(1))
-        z = rnd(rnd(z * t1) + fb)
+        t1 = (1 + film[0].detach()).reshape(n, 1, 1, c).float()
+        z = rnd(rnd(z * t1) + film[1].detach().reshape(n, 1, 1, c).float())
     sg = rnd(torch.sigmoid(z))
     gy = gy.float()
     return rnd(rnd(gy * sg) + rnd(rnd(rnd(gy * z) * rnd(1 - sg)) * sg)), xhat
 
 
-def _gn_bwd_film(film, n, c):
-    """The FiLM terms the backward kernels read: [N, 2, C] fp32 of
-    t1 = 1 + fs (formed in fs's dtype, as the plain composition forms it)
-    and fb."""
-    return torch.stack([(1 + film[0].detach()).reshape(n, c), film[1].detach().reshape(n, c)], 1).float()
-
-
-def gn_bwd_coefficients(sums, scale, bias, hw, groups, film=None):
-    """The [N, C] arithmetic between the two backward kernels, from the
-    reduce's partials [N, S, 2, C]: (coef [N, 2, G] = the group means A, B
-    that ``gn_bwd_apply`` reads, dscale [C], dbias [C], dfs [N, C], dfb
-    [N, C]), fp32; dfs and dfb None without FiLM."""
-    n, c = sums.shape[0], sums.shape[-1]
-    s1, s2 = sums.sum(1).unbind(1)
-    gamma, beta = scale.float().reshape(c), bias.float().reshape(c)
-    f1 = None if film is None else _gn_bwd_film(film, n, c)[:, 0]
-    k = gamma if f1 is None else gamma * f1
-    coef = torch.stack([k * s1, k * s2], 1).reshape(n, 2, groups, c // groups).sum(-1) / (hw * (c // groups))
-    w1, w2 = (s1, s2) if f1 is None else (f1 * s1, f1 * s2)
-    dfs = dfb = None
-    if film is not None:
-        dfs, dfb = gamma * s2 + beta * s1, s1
-    return coef.contiguous(), w2.sum(0), w1.sum(0), dfs, dfb
-
-
-def gn_bwd_apply_plain(x, part, gy, coef, scale, bias, eps=1e-5, film=None):
+def gn_bwd_apply_plain(x, gy, stats, scale, bias, film=None):
     """Plain version of ``gn_bwd_apply``: dx = rstd*(k*gz - A - xhat*B) in
-    fp32, cast once to x's dtype."""
+    fp32 from ``stats`` [N, 4, G] (mean, rstd, A, B), cast once to x's
+    dtype."""
     n, h, w, c = x.shape
-    g = part.shape[1]
-    gz, xhat = _gn_bwd_terms(x, part, gy, scale, bias, eps, film)
-    rstd = merge_partials(part, eps)[1].repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c)
+    g = stats.shape[2]
+    mean, rstd, a, b = stats.unbind(1)
+    gz, xhat = _gn_bwd_terms(x, mean, rstd, gy, scale, bias, film)
     k = scale.float().reshape(c)
     if film is not None:
-        k = k * _gn_bwd_film(film, n, c)[:, 0].reshape(n, 1, 1, c)
-    a, b = (t.repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c) for t in coef.unbind(1))
-    return (rstd * (k * gz - a - xhat * b)).to(x.dtype)
-
-
-def _like(grad, t):
-    """A gradient in the dtype and shape of its input ``t``."""
-    return None if grad is None or t is None else grad.to(t.dtype).reshape(t.shape)
+        k = k * (1 + film[0].detach()).reshape(n, 1, 1, c).float()
+    rs, a, b = (t.repeat_interleave(c // g, dim=1).reshape(n, 1, 1, c) for t in (rstd, a, b))
+    return (rs * (k * gz - a - xhat * b)).to(x.dtype)
 
 
 def gn_silu_bwd_plain(x, part, gy, scale, bias, eps=1e-5, film=None):
@@ -588,76 +639,145 @@ def gn_silu_bwd_plain(x, part, gy, scale, bias, eps=1e-5, film=None):
     partials: (dx, dscale, dbias, dfs, dfb), each in its input's dtype and
     shape (dfs, dfb None without FiLM). ``part``: the forward's statistics
     partials [N, G, S, 3]."""
+    red = gn_bwd_reduce_plain(x, part, gy, scale, bias, eps, film)
+    dx = gn_bwd_apply_plain(x, gy, red.stats, scale, bias, film)
+    return dx, red.dscale, red.dbias, red.dfs, red.dfb
+
+
+class _GnBwdArgs(ctypes.Structure):
+    """The C struct ``GnBwdArgs`` of ``csrc/groupnorm_silu.cu``, field by
+    field: pointers, FiLM row strides, dtype codes (0 fp32, 1 bf16), sizes,
+    eps and the launch shape."""
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in ("x", "gy", "part", "gamma", "beta", "fs", "fb", "sums", "fin",
+                                        "stats", "count", "dgamma", "dbeta", "dfs", "dfb", "dx")]
+        + [("fs_ld", ctypes.c_longlong), ("fb_ld", ctypes.c_longlong)]
+        + [(f, ctypes.c_int) for f in ("dtype", "gamma_t", "beta_t", "fs_t", "fb_t", "N", "HW", "C", "G", "S")]
+        + [("eps", ctypes.c_float)]
+        + [(f, ctypes.c_int) for f in ("vec", "bdx", "bdy", "grid_x", "grid_c")]
+    )
+
+
+# Arrival counters of gn_bwd_reduce per (device, stream): zeroed once, and
+# every launch leaves them 0 (its finishing blocks reset what they counted).
+_gn_bwd_counters: Dict[tuple, torch.Tensor] = {}
+
+
+def _arrival_counters(x: torch.Tensor, size: int) -> torch.Tensor:
+    key = (x.device.index, _stream(x))
+    with _lock:
+        t = _gn_bwd_counters.get(key)
+        if t is None or t.numel() < size:
+            t = _gn_bwd_counters[key] = torch.zeros(max(size, 4096), dtype=torch.int32, device=x.device)
+        return t
+
+
+def _gn_bwd_param(t: torch.Tensor, x: torch.Tensor, name: str, rows: int = 0):
+    """A parameter as the backward kernels read it: [C] (or [N, C] rows of
+    unit stride) on x's card, fp32 or bf16 (no copy on the main path).
+    Returns (tensor, dtype code, row stride)."""
+    c = x.shape[-1]
+    t = t.detach().reshape(rows, c) if rows else t.detach().reshape(c)
+    if t.device != x.device:
+        raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if t.dtype not in _GN_DTYPES:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported (want float32 or bfloat16)")
+    if t.stride(-1) != 1:
+        t = t.contiguous()
+    return t, _GN_DTYPES[t.dtype], t.stride(0) if rows else 0
+
+
+def _gn_bwd_args(x, gy, scale, bias, film, geo, **ptrs) -> _GnBwdArgs:
     n, h, w, c = x.shape
-    sums = gn_bwd_reduce_plain(x, part, gy, scale, bias, eps, film)
-    coef, dscale, dbias, dfs, dfb = gn_bwd_coefficients(sums, scale, bias, h * w, part.shape[1], film)
-    dx = gn_bwd_apply_plain(x, part, gy, coef, scale, bias, eps, film)
-    fs, fb = (None, None) if film is None else film
-    return dx, _like(dscale, scale), _like(dbias, bias), _like(dfs, fs), _like(dfb, fb)
+    gamma, gamma_t, _ = _gn_bwd_param(scale, x, "scale")
+    beta, beta_t, _ = _gn_bwd_param(bias, x, "bias")
+    a = _GnBwdArgs(x=x.data_ptr(), gy=gy.data_ptr(), gamma=gamma.data_ptr(), beta=beta.data_ptr(),
+                   dtype=_GN_DTYPES[x.dtype], gamma_t=gamma_t, beta_t=beta_t, N=n, HW=h * w, C=c,
+                   vec=geo["vec"], bdx=geo["block"][0], bdy=geo["block"][1], grid_x=geo["grid"][0],
+                   grid_c=geo["grid"][1])
+    fs = fb = None
+    if film is not None:
+        (fs, a.fs_t, a.fs_ld), (fb, a.fb_t, a.fb_ld) = (_gn_bwd_param(f, x, name, n) for f, name in
+                                                          zip(film, ("film scale", "film shift")))
+        if x.dtype == torch.bfloat16 and (fs.dtype, fb.dtype) != (x.dtype, x.dtype):
+            raise TypeError("bf16 x: the backward kernels take the FiLM terms in bf16")
+        a.fs, a.fb = fs.data_ptr(), fb.data_ptr()
+    for k, v in ptrs.items():
+        setattr(a, k, 0 if v is None else v.data_ptr())
+    a._keep = (gamma, beta, fs, fb)  # any copies, alive while the struct is
+    return a
 
 
-def gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps=1e-5, film=None):
-    """Launch ``gn_bwd_reduce`` on x and its cotangent gy (both [N, H, W, C],
-    contiguous, x's dtype) with the forward's partials ``part``. Returns the
-    fp32 (S1, S2) partials [N, S, 2, C] of ``gn_bwd_reduce_plain``."""
+def _gn_bwd_check(x, gy):
     _require_cuda(x, "x", tuple(_GN_DTYPES))
     _require_cuda(gy, "gy", (x.dtype,))
-    _require_cuda(part, "part", (torch.float32,))
     if x.ndim != 4 or gy.shape != x.shape:
         raise ValueError(f"x {tuple(x.shape)} and gy {tuple(gy.shape)} must be one [N, H, W, C] shape")
-    n, h, w, c = x.shape
-    g, s = part.shape[1], part.shape[2]
-    gamma, beta, film_t = _gn_params(x, part, scale, bias, film, backward=True)
-    geo = gn_bwd_geometry(x, g, gy)
-    sums = torch.empty((n, geo["grid"][0], 2, c), dtype=torch.float32, device=x.device)
-    lib = _load()
-    _check(lib, lib.ishape_gn_bwd_reduce(
-        x.data_ptr(), gy.data_ptr(), part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        0 if film_t is None else film_t.data_ptr(), sums.data_ptr(), _GN_DTYPES[x.dtype], n, h * w, c,
-        g, s, float(eps), geo["vec"], *geo["block"], *geo["grid"][:2], _stream(x),
-    ), "gn_bwd_reduce")
-    LAUNCHES["gn_bwd_reduce"] += 1
-    _record("gn_bwd_reduce", x, _nbytes(x, gy, part, gamma, beta, film_t, sums), fp32_flops=16 * x.numel())
-    return sums
 
 
-def gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, eps=1e-5, film=None):
-    """Launch ``gn_bwd_apply``: dx in x's dtype from x, gy, the forward's
-    partials and the group means ``coef`` [N, 2, G] of
-    ``gn_bwd_coefficients``."""
-    _require_cuda(x, "x", tuple(_GN_DTYPES))
-    _require_cuda(gy, "gy", (x.dtype,))
+def gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps=1e-5, film=None, need=_GN_NEEDS_ALL) -> GnBwdOut:
+    """Launch ``gn_bwd_reduce`` on x and its cotangent gy (both [N, H, W, C],
+    contiguous, x's dtype) with the forward's partials ``part``. Returns the
+    ``GnBwdOut`` of ``gn_bwd_reduce_plain``; writes the parameters'
+    gradients that ``need`` (x, scale, bias, fs, fb) asks for."""
+    _gn_bwd_check(x, gy)
     _require_cuda(part, "part", (torch.float32,))
-    _require_cuda(coef, "coef", (torch.float32,))
     n, h, w, c = x.shape
+    if part.ndim != 4 or part.shape[0] != n or part.shape[3] != 3 or c % part.shape[1]:
+        raise ValueError(f"part {tuple(part.shape)} does not fit x {tuple(x.shape)}")
     g, s = part.shape[1], part.shape[2]
-    if gy.shape != x.shape or coef.shape != (n, 2, g):
-        raise ValueError(f"gy {tuple(gy.shape)} or coef {tuple(coef.shape)} does not fit x {tuple(x.shape)}")
-    gamma, beta, film_t = _gn_params(x, part, scale, bias, film, backward=True)
+    geo = gn_bwd_geometry(x, g, gy)
+    grid_x, grid_c = geo["grid"][:2]
+    ws = torch.empty(n * (grid_x + 1) * 2 * c + n * 4 * g, dtype=torch.float32, device=x.device)
+    sums = ws[: n * grid_x * 2 * c].view(n, grid_x, 2, c)
+    fin = ws[n * grid_x * 2 * c: n * (grid_x + 1) * 2 * c]
+    stats = ws[n * (grid_x + 1) * 2 * c:].view(n, 4, g)
+    dscale = torch.empty_like(scale, memory_format=torch.contiguous_format) if need[1] else None
+    dbias = torch.empty_like(bias, memory_format=torch.contiguous_format) if need[2] else None
+    fs, fb = (None, None) if film is None else film
+    dfs = torch.empty_like(fs, memory_format=torch.contiguous_format) if fs is not None and need[3] else None
+    dfb = torch.empty_like(fb, memory_format=torch.contiguous_format) if fb is not None and need[4] else None
+    count = _arrival_counters(x, n * grid_c + grid_c)
+    args = _gn_bwd_args(x, gy, scale, bias, film, geo, part=part, sums=sums, fin=fin, stats=stats,
+                        count=count, dgamma=dscale, dbeta=dbias, dfs=dfs, dfb=dfb)
+    args.G, args.S, args.eps = g, s, float(eps)
+    lib = _load()
+    _check(lib, lib.ishape_gn_bwd_reduce(ctypes.byref(args), _stream(x)), "gn_bwd_reduce")
+    LAUNCHES["gn_bwd_reduce"] += 1
+    _record("gn_bwd_reduce", x, _nbytes(x, gy, part, scale, bias, *(film or ()), sums, stats, dscale, dbias,
+                                        dfs, dfb), fp32_flops=16 * x.numel())
+    return GnBwdOut(sums, stats, dscale, dbias, dfs, dfb)
+
+
+def gn_bwd_apply_cuda(x, gy, stats, scale, bias, film=None):
+    """Launch ``gn_bwd_apply``: dx in x's dtype from x, gy and the reduce's
+    ``stats`` [N, 4, G] (mean, rstd, A, B)."""
+    _gn_bwd_check(x, gy)
+    _require_cuda(stats, "stats", (torch.float32,))
+    n, h, w, c = x.shape
+    g = stats.shape[-1]
+    if stats.shape != (n, 4, g) or c % g:
+        raise ValueError(f"stats {tuple(stats.shape)} does not fit x {tuple(x.shape)}")
     dx = torch.empty_like(x)
     geo = gn_bwd_geometry(x, g, gy, dx)
+    args = _gn_bwd_args(x, gy, scale, bias, film, geo, stats=stats, dx=dx)
+    args.G = g
     lib = _load()
-    _check(lib, lib.ishape_gn_bwd_apply(
-        x.data_ptr(), gy.data_ptr(), part.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        0 if film_t is None else film_t.data_ptr(), coef.data_ptr(), dx.data_ptr(), _GN_DTYPES[x.dtype],
-        n, h * w, c, g, s, float(eps), geo["vec"], *geo["block"], *geo["grid"][:2], _stream(x),
-    ), "gn_bwd_apply")
+    _check(lib, lib.ishape_gn_bwd_apply(ctypes.byref(args), _stream(x)), "gn_bwd_apply")
     LAUNCHES["gn_bwd_apply"] += 1
-    _record("gn_bwd_apply", x, _nbytes(x, gy, dx, part, coef, gamma, beta, film_t), fp32_flops=18 * x.numel())
+    _record("gn_bwd_apply", x, _nbytes(x, gy, dx, stats, scale, bias, *(film or ())), fp32_flops=18 * x.numel())
     return dx
 
 
-def gn_silu_bwd_cuda(x, part, gy, scale, bias, eps=1e-5, film=None, need_dx=True):
-    """Both backward kernels: ``gn_bwd_reduce``, the [N, C] arithmetic, then
-    ``gn_bwd_apply`` (only with ``need_dx``). Returns what
-    ``gn_silu_bwd_plain`` returns (dx None without ``need_dx``)."""
+def gn_silu_bwd_cuda(x, part, gy, scale, bias, eps=1e-5, film=None, need=_GN_NEEDS_ALL):
+    """Both backward kernels, and nothing else where gy is contiguous in x's
+    dtype: ``gn_bwd_reduce`` (the gradients of the parameters ``need`` asks
+    for), then ``gn_bwd_apply`` (dx, only if ``need[0]``). Returns what
+    ``gn_silu_bwd_plain`` returns (None for what ``need`` leaves out)."""
     gy = gy.to(x.dtype).contiguous()
-    n, h, w, c = x.shape
-    sums = gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps, film)
-    coef, dscale, dbias, dfs, dfb = gn_bwd_coefficients(sums, scale, bias, h * w, part.shape[1], film)
-    dx = gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, eps, film) if need_dx else None
-    fs, fb = (None, None) if film is None else film
-    return dx, _like(dscale, scale), _like(dbias, bias), _like(dfs, fs), _like(dfb, fb)
+    red = gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps, film, need)
+    dx = gn_bwd_apply_cuda(x, gy, red.stats, scale, bias, film) if need[0] else None
+    return dx, red.dscale, red.dbias, red.dfs, red.dfb
 
 
 class GroupNormSiLU(torch.autograd.Function):
@@ -684,8 +804,8 @@ class GroupNormSiLU(torch.autograd.Function):
         if part is not None:
             x, scale, bias, fs, fb = saved
             grads = gn_silu_bwd_cuda(x, part, gy, scale, bias, ctx.eps,
-                                     None if fs is None else (fs, fb), need_dx=need[0])
-            return (*(g if need[i] else None for i, g in enumerate(grads)), None, None)
+                                     None if fs is None else (fs, fb), need=need[:5])
+            return (*grads, None, None)
         inputs = [
             None if t is None else t.detach().requires_grad_(need[i])
             for i, t in enumerate(saved)

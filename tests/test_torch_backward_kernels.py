@@ -123,13 +123,18 @@ def test_gn_bwd_plain_matches_autograd(dtype, film, shape):
 
 def test_gn_bwd_reduce_plain_splits_rows_as_the_kernel():
     """The reduce's partials: one per row block of ``gn_bwd_geometry``, each
-    summing that block's rows; together the full per-channel sums."""
+    summing that block's rows; together the full per-channel sums. Its
+    statistics are the forward partials' merge."""
     x, scale, bias, f, gy = torch_gn(*gn_inputs(3, (2, 16, 16, 64), True), torch.float32)
     part = hk.gn_stats_plain(x, 32)
-    sums = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
+    red = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
+    sums = red.sums
     geo = hk.gn_bwd_geometry(x, 32, gy)
     assert sums.shape == (2, geo["grid"][0], 2, 64) and geo["grid"][0] > 1
+    assert red.stats.shape == (2, 4, 32)
     mu, rstd = hk.merge_partials(part)
+    torch.testing.assert_close(red.stats[:, 0], mu, atol=0, rtol=0)
+    torch.testing.assert_close(red.stats[:, 1], rstd, atol=0, rtol=0)
     xhat = (x - mu.repeat_interleave(2, 1)[:, None, None]) * rstd.repeat_interleave(2, 1)[:, None, None]
     a = (xhat * scale + bias) * (1 + f[0][:, None, None]) + f[1][:, None, None]
     sg = torch.sigmoid(a)
@@ -139,6 +144,54 @@ def test_gn_bwd_reduce_plain_splits_rows_as_the_kernel():
     rows = (torch.arange(256) % geo["row_step"]) // geo["block"][1]
     block0 = rows == 0
     torch.testing.assert_close(sums[:, 0, 0], gz.reshape(2, 256, 64)[:, block0].sum(1), atol=1e-5, rtol=1e-5)
+
+
+def coefficients_before(sums, scale, bias, hw, groups, film=None):
+    """The [N, C] arithmetic that ran as torch ops between the two backward
+    kernels before the reduce finished it itself (the oracle of
+    ``test_gn_bwd_finish_plain_matches_the_torch_coefficients``): coef
+    [N, 2, G], dscale [C], dbias [C], dfs [N, C], dfb [N, C], fp32."""
+    n, c = sums.shape[0], sums.shape[-1]
+    s1, s2 = sums.sum(1).unbind(1)
+    gamma, beta = scale.float().reshape(c), bias.float().reshape(c)
+    f1 = None if film is None else (1 + film[0]).reshape(n, c).float()
+    k = gamma if f1 is None else gamma * f1
+    coef = torch.stack([k * s1, k * s2], 1).reshape(n, 2, groups, c // groups).sum(-1) / (hw * (c // groups))
+    w1, w2 = (s1, s2) if f1 is None else (f1 * s1, f1 * s2)
+    dfs = dfb = None
+    if film is not None:
+        dfs, dfb = gamma * s2 + beta * s1, s1
+    return coef.contiguous(), w2.sum(0), w1.sum(0), dfs, dfb
+
+
+@pytest.mark.parametrize("film", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gn_bwd_finish_plain_matches_the_torch_coefficients(dtype, film):
+    """The finished outputs of the new twins (A, B in ``stats``, dscale,
+    dbias, dfs, dfb: what the reduce's finishing blocks write, in their
+    order) against the torch ops that computed them before, on the same
+    partials: fp32 sums in another order (1e-5 of the largest), then each
+    cast once to its parameter's dtype (one bf16 ulp); mean and rstd pass
+    through."""
+    shape = (3, 8, 8, 64)
+    dt = getattr(torch, dtype)
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(11, shape, film), dt)
+    part = hk.gn_stats_plain(x, 32)
+    red = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
+    coef, dscale, dbias, dfs, dfb = coefficients_before(red.sums, scale, bias, 64, 32, f)
+    mu, rstd = hk.merge_partials(part)
+    torch.testing.assert_close(red.stats[:, :2], torch.stack([mu, rstd], 1), atol=0, rtol=0)
+    assert rel_err(red.stats[:, 2:].numpy(), coef.numpy()) <= 1e-5
+    for got, want, like in ((red.dscale, dscale, scale), (red.dbias, dbias, bias),
+                            *(((red.dfs, dfs, f[0]), (red.dfb, dfb, f[1])) if film else ())):
+        assert got.dtype == like.dtype and got.shape == like.shape
+        assert rel_err(got.float().numpy(), want.numpy()) <= (1e-5 if like.dtype == torch.float32 else 2 ** -8)
+    if not film:
+        assert red.dfs is None and red.dfb is None
+    # only what is asked for
+    part_need = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f, need=(True, False, True, False, film))
+    assert part_need.dscale is None and part_need.dfs is None and part_need.dbias is not None
+    assert (part_need.dfb is not None) == film
 
 
 def attn_inputs(seed, n, t, heads, ch, dtype):
@@ -312,34 +365,123 @@ def test_cuda_backward_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 
+GN_CARD_CASES = [((2, 16, 16, 512), torch.bfloat16, True), ((1, 8, 8, 2048), torch.bfloat16, False),
+                 ((1, 64, 64, 256), torch.bfloat16, True), ((1, 16, 16, 256), torch.float32, False),
+                 ((1, 6, 10, 24), torch.float32, True), ((1, 16, 16, 16), torch.float32, True),
+                 ((1, 8, 8, 24), torch.bfloat16, True)]  # the last: one channel per thread in bf16
+GN_SUMS_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
+GN_DX_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def gn_out_tol(t, dtype):
+    """The tolerance of a finished output: the partials' for fp32 ones; for
+    one stored in bf16 (dfs, dfb of bf16 FiLM terms) one rounding to bf16 on
+    top (an element next to a rounding tie moves by an ulp, 2^-8 of itself)."""
+    return GN_DX_TOL[torch.bfloat16] if t.dtype == torch.bfloat16 else GN_SUMS_TOL[dtype]
+
+
+def gn_bwd_on_card(x, gy, scale, bias, f, groups):
+    part = hk.gn_stats_cuda(x, groups)
+    red = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
+    dx = hk.gn_bwd_apply_cuda(x, gy, red.stats, scale, bias, film=f)
+    torch.cuda.synchronize()
+    return part, red, dx
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape,dtype,film",
-    [((2, 16, 16, 512), torch.bfloat16, True), ((1, 8, 8, 2048), torch.bfloat16, False),
-     ((1, 64, 64, 256), torch.bfloat16, True), ((1, 16, 16, 256), torch.float32, False),
-     ((1, 6, 10, 24), torch.float32, True), ((1, 16, 16, 16), torch.float32, True)],
-)
+@pytest.mark.parametrize("shape,dtype,film", GN_CARD_CASES)
 def test_gn_bwd_kernels_on_card(cuda_device, shape, dtype, film):
-    """gn_bwd_reduce's partials against ``gn_bwd_reduce_plain`` (fp32 sums
+    """gn_bwd_reduce's partials against ``gn_bwd_reduce_plain``'s (fp32 sums
     in another order, and in bf16 now and then a rounding tie of the
     emulated composition broken the other way, one bf16 ulp of one term:
-    fp32 1e-4, bf16 1e-3 of the largest), gn_bwd_apply's dx against
-    ``gn_bwd_apply_plain`` on the same group means (one rounding of x's
-    dtype: bf16 1e-2, fp32 1e-5 of the largest), one launch each."""
+    fp32 1e-4, bf16 1e-3 of the largest); its finished outputs bit for bit
+    what ``gn_bwd_finish_plain`` computes from its own partials (the same
+    sums in the same order) and, at the partials' tolerance (``gn_out_tol``:
+    one bf16 rounding more for a gradient stored in bf16), the twin's;
+    gn_bwd_apply's dx against ``gn_bwd_apply_plain`` on the kernel's
+    statistics (one rounding of x's dtype: bf16 1e-2, fp32 1e-5 of the
+    largest); one launch each, and a second run gives the same bits."""
     x, scale, bias, f, gy = torch_gn(*gn_inputs(9, shape, film), dtype, cuda_device)
-    part = hk.gn_stats_cuda(x, effective_groups(shape[-1], 32))
+    g = effective_groups(shape[-1], 32)
     before = dict(hk.LAUNCHES)
-    sums = hk.gn_bwd_reduce_cuda(x, part, gy, scale, bias, film=f)
-    want = hk.gn_bwd_reduce_plain(x, part, gy, scale, bias, film=f)
-    assert rel_err(sums.cpu().numpy(), want.cpu().numpy()) <= (1e-3 if dtype == torch.bfloat16 else 1e-4)
-    coef = hk.gn_bwd_coefficients(sums, scale, bias, shape[1] * shape[2], part.shape[1], f)[0]
-    dx = hk.gn_bwd_apply_cuda(x, part, gy, coef, scale, bias, film=f)
-    torch.cuda.synchronize()
-    want = hk.gn_bwd_apply_plain(x, part, gy, coef, scale, bias, film=f)
-    assert rel_err(dx.float().cpu().numpy(), want.float().cpu().numpy()) <= (
-        1e-2 if dtype == torch.bfloat16 else 1e-5)
+    part, red, dx = gn_bwd_on_card(x, gy, scale, bias, f, g)
     assert hk.LAUNCHES["gn_bwd_reduce"] == before["gn_bwd_reduce"] + 1
     assert hk.LAUNCHES["gn_bwd_apply"] == before["gn_bwd_apply"] + 1
+    cpu = lambda t: None if t is None else t.cpu()  # noqa: E731
+    xc, gyc, sc, bc = (cpu(t) for t in (x, gy, scale, bias))
+    fc = None if f is None else tuple(cpu(t) for t in f)
+    want = hk.gn_bwd_reduce_plain(xc, cpu(part), gyc, sc, bc, film=fc)
+    assert rel_err(red.sums.cpu().numpy(), want.sums.numpy()) <= GN_SUMS_TOL[dtype]
+    mean, rstd = hk.merge_partials(cpu(part))
+    assert rel_err(red.stats[:, 0].cpu().numpy(), mean.numpy()) <= 1e-6
+    assert rel_err(red.stats[:, 1].cpu().numpy(), rstd.numpy()) <= 1e-6
+    exact = hk.gn_bwd_finish_plain(cpu(red.sums), cpu(red.stats[:, 0]), cpu(red.stats[:, 1]), sc, bc,
+                                   shape[1] * shape[2], fc)
+    for name, got, same, twin in zip(("stats", "dscale", "dbias", "dfs", "dfb"), red[1:], exact, want[1:]):
+        assert (got is None) == (same is None) == (twin is None) == (name in ("dfs", "dfb") and not film), name
+        if got is not None:
+            assert torch.equal(got.cpu(), same), name
+            assert got.dtype == twin.dtype and got.shape == twin.shape, name
+            assert rel_err(got.float().cpu().numpy(), twin.float().numpy()) <= gn_out_tol(got, dtype), name
+    dx_want = hk.gn_bwd_apply_plain(xc, gyc, cpu(red.stats), sc, bc, film=fc)
+    assert rel_err(dx.float().cpu().numpy(), dx_want.float().numpy()) <= GN_DX_TOL[dtype]
+    _, red2, dx2 = gn_bwd_on_card(x, gy, scale, bias, f, g)
+    for a, b in zip((*red, dx), (*red2, dx2)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_gn_bwd_kernels_keep_nan_and_inf(cuda_device, dtype, bad):
+    """A NaN or an inf in the cotangent leaves every output non-finite where
+    the twin's is (the rounding keeps NaN NaN and inf inf: the train loop's
+    NaN guard reads the gradients), and the rest within the tolerances."""
+    shape = (2, 16, 16, 256)
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(13, shape, True), dtype, cuda_device)
+    gy[0, 3, 5, 17] = bad
+    gy[1, 7, 2, 200] = -bad
+    part, red, dx = gn_bwd_on_card(x, gy, scale, bias, f, 32)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    fc = tuple(cpu(t) for t in f)
+    want = hk.gn_bwd_reduce_plain(cpu(x), cpu(part), cpu(gy), cpu(scale), cpu(bias), film=fc)
+    dx_want = hk.gn_bwd_apply_plain(cpu(x), cpu(gy), cpu(red.stats), cpu(scale), cpu(bias), film=fc)
+    pairs = [("sums", red.sums, want.sums, GN_SUMS_TOL[dtype]), ("dx", dx, dx_want, GN_DX_TOL[dtype])]
+    pairs += [(k, getattr(red, k), getattr(want, k), gn_out_tol(getattr(red, k), dtype))
+              for k in ("dscale", "dbias", "dfs", "dfb")]
+    pairs.append(("A, B", red.stats[:, 2:], want.stats[:, 2:], GN_SUMS_TOL[dtype]))
+    for name, got, w in ((n, g.float().cpu(), w.float()) for n, g, w, _ in pairs):
+        assert torch.equal(got.isfinite(), w.isfinite()), name
+        assert not bool(w.isfinite().all()), name
+    for name, got, w, tol in pairs:
+        got, w = got.float().cpu(), w.float()
+        ok = w.isfinite()
+        if bool(ok.any()):
+            assert rel_err(got[ok].numpy(), w[ok].numpy()) <= tol, name
+
+
+@pytest.mark.cuda
+def test_gn_backward_launches_the_two_kernels_and_nothing_else(cuda_device):
+    """A profiler trace of one ``GroupNormSiLU`` backward (bf16, FiLM, every
+    gradient asked for) holds exactly the two backward kernels, once each:
+    the [N, C] arithmetic runs inside them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ishapediting_tpu_torch.utils.device import kernel_rows
+
+    x, scale, bias, f, gy = torch_gn(*gn_inputs(12, (2, 32, 32, 256), True), torch.bfloat16, cuda_device)
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias, *f)]
+    y = hk.groupnorm_silu(leaves[0], leaves[1], leaves[2], film=tuple(leaves[3:]))
+    torch.autograd.grad(y, leaves, gy, retain_graph=True)  # the build and the arrival counters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grads = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    names = sorted(e.key for e in rows)
+    assert len(rows) == 2 and "gn_bwd_apply_kernel" in names[0] and "gn_bwd_reduce_kernel" in names[1], names
+    assert all(e.count == 1 for e in rows)
+    assert [g.dtype for g in grads] == [t.dtype for t in leaves]
 
 
 @pytest.mark.cuda
