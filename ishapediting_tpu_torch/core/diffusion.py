@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ishapediting_tpu_torch.core.schedule import Schedule, extract, model_timesteps
+from ishapediting_tpu_torch.utils.trace import span
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
@@ -135,30 +136,33 @@ def p_mean_variance(
     predict_xstart: bool = False,
 ) -> PMeanVar:
     """Model -> p(x_{t-1} | x_t) with LEARNED_RANGE variance interpolation
-    (reference: gaussian_diffusion.py:232-331). ``t`` is respaced, [B]."""
+    (reference: gaussian_diffusion.py:232-331). ``t`` is respaced, [B].
+    What follows the model call is the first of a step's two
+    ``sampler_step`` spans; the sampler's update is the second."""
     sched = sched.to(x.device)
     nd = x.ndim
     model_output, feat = model_fn(x, model_timesteps(sched, t))
-    model_output = model_output.float()
-    c = x.shape[-1]
-    assert model_output.shape[-1] == 2 * c, (model_output.shape, c)
-    model_eps, model_var_values = model_output.chunk(2, dim=-1)
+    with span("sampler_step"):
+        model_output = model_output.float()
+        c = x.shape[-1]
+        assert model_output.shape[-1] == 2 * c, (model_output.shape, c)
+        model_eps, model_var_values = model_output.chunk(2, dim=-1)
 
-    min_log = extract(sched.posterior_log_variance_clipped, t, nd)
-    max_log = extract(sched.log_betas, t, nd)
-    frac = (model_var_values + 1.0) * 0.5
-    model_log_variance = frac * max_log + (1.0 - frac) * min_log
-    model_variance = torch.exp(model_log_variance)
+        min_log = extract(sched.posterior_log_variance_clipped, t, nd)
+        max_log = extract(sched.log_betas, t, nd)
+        frac = (model_var_values + 1.0) * 0.5
+        model_log_variance = frac * max_log + (1.0 - frac) * min_log
+        model_variance = torch.exp(model_log_variance)
 
-    x32 = x.float()
-    if predict_xstart:
-        pred_xstart = model_eps
-    else:
-        pred_xstart = predict_xstart_from_eps(sched, x32, t, model_eps)
-    if clip_denoised:
-        pred_xstart = pred_xstart.clamp(-1.0, 1.0)
-    mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x32, t)
-    return PMeanVar(mean, model_variance, model_log_variance, pred_xstart, model_eps, feat)
+        x32 = x.float()
+        if predict_xstart:
+            pred_xstart = model_eps
+        else:
+            pred_xstart = predict_xstart_from_eps(sched, x32, t, model_eps)
+        if clip_denoised:
+            pred_xstart = pred_xstart.clamp(-1.0, 1.0)
+        mean, _, _ = q_posterior_mean_variance(sched, pred_xstart, x32, t)
+        return PMeanVar(mean, model_variance, model_log_variance, pred_xstart, model_eps, feat)
 
 
 def _nonzero_mask(t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -177,10 +181,11 @@ def p_sample(
 ) -> Dict[str, torch.Tensor]:
     """Ancestral DDPM step (reference: gaussian_diffusion.py:400-444)."""
     out = p_mean_variance(sched, model_fn, x, t, clip_denoised=clip_denoised)
-    if noise is None:
-        noise = _randn(x, generator)
-    sample = out.mean + _nonzero_mask(t, x.ndim) * torch.exp(0.5 * out.log_variance) * noise
-    return {"sample": sample, "pred_xstart": out.pred_xstart}
+    with span("sampler_step"):
+        if noise is None:
+            noise = _randn(x, generator)
+        sample = out.mean + _nonzero_mask(t, x.ndim) * torch.exp(0.5 * out.log_variance) * noise
+        return {"sample": sample, "pred_xstart": out.pred_xstart}
 
 
 def p_sample_guidance(
@@ -203,23 +208,24 @@ def p_sample_guidance(
     ``variance_noise`` (exact replay: sample = mean + variance_noise).
     """
     out = p_mean_variance(sched, model_fn, x, t, clip_denoised=clip_denoised)
-    result: Dict[str, Any] = {
-        "mean": out.mean,
-        "variance": out.variance,
-        "pred_xstart": out.pred_xstart,
-        "inter_feat": out.feat,
-        "model_output": out.eps,
-    }
-    if variance_noise is not None:
-        result["sample"] = out.mean + variance_noise
+    with span("sampler_step"):
+        result: Dict[str, Any] = {
+            "mean": out.mean,
+            "variance": out.variance,
+            "pred_xstart": out.pred_xstart,
+            "inter_feat": out.feat,
+            "model_output": out.eps,
+        }
+        if variance_noise is not None:
+            result["sample"] = out.mean + variance_noise
+            return result
+        if noise is None:
+            noise = _randn(x, generator)
+        var = out.variance if variance is None else variance
+        result["noise"] = noise
+        result["variance"] = var
+        result["sample"] = out.mean + _nonzero_mask(t, x.ndim) * torch.sqrt(var) * noise
         return result
-    if noise is None:
-        noise = _randn(x, generator)
-    var = out.variance if variance is None else variance
-    result["noise"] = noise
-    result["variance"] = var
-    result["sample"] = out.mean + _nonzero_mask(t, x.ndim) * torch.sqrt(var) * noise
-    return result
 
 
 def ddim_sample(
@@ -235,32 +241,33 @@ def ddim_sample(
 ) -> Dict[str, Any]:
     """DDIM step (reference: gaussian_diffusion.py:654-705)."""
     out = p_mean_variance(sched, model_fn, x, t, clip_denoised=clip_denoised)
-    sched = sched.to(x.device)
-    nd = x.ndim
-    eps = predict_eps_from_xstart(sched, x.float(), t, out.pred_xstart)
-    alpha_bar = extract(sched.alphas_cumprod, t, nd)
-    alpha_bar_prev = extract(sched.alphas_cumprod_prev, t, nd)
-    sigma = (
-        eta
-        * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
-        * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
-    )
-    mean_pred = (
-        out.pred_xstart * torch.sqrt(alpha_bar_prev)
-        + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps
-    )
-    if eta != 0.0:
-        if noise is None:
-            noise = _randn(x, generator)
-        sample = mean_pred + _nonzero_mask(t, nd) * sigma * noise
-    else:
-        sample = mean_pred
-    return {
-        "sample": sample,
-        "pred_xstart": out.pred_xstart,
-        "inter_feat": out.feat,
-        "model_output": out.eps,
-    }
+    with span("sampler_step"):
+        sched = sched.to(x.device)
+        nd = x.ndim
+        eps = predict_eps_from_xstart(sched, x.float(), t, out.pred_xstart)
+        alpha_bar = extract(sched.alphas_cumprod, t, nd)
+        alpha_bar_prev = extract(sched.alphas_cumprod_prev, t, nd)
+        sigma = (
+            eta
+            * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+            * torch.sqrt(1 - alpha_bar / alpha_bar_prev)
+        )
+        mean_pred = (
+            out.pred_xstart * torch.sqrt(alpha_bar_prev)
+            + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps
+        )
+        if eta != 0.0:
+            if noise is None:
+                noise = _randn(x, generator)
+            sample = mean_pred + _nonzero_mask(t, nd) * sigma * noise
+        else:
+            sample = mean_pred
+        return {
+            "sample": sample,
+            "pred_xstart": out.pred_xstart,
+            "inter_feat": out.feat,
+            "model_output": out.eps,
+        }
 
 
 def ddim_reverse_sample(

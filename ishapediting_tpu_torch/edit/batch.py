@@ -32,6 +32,7 @@ from ishapediting_tpu_torch.edit.features import regroup_features
 from ishapediting_tpu_torch.edit.fit import fit_guided, sample_training_points
 from ishapediting_tpu_torch.parallel.mesh import DataMesh, gather
 from ishapediting_tpu_torch.parallel.sampling import RowDraws
+from ishapediting_tpu_torch.utils.trace import span
 
 
 def stack_problems(problems: Sequence[DragProblem]) -> DragProblem:
@@ -179,14 +180,17 @@ def drag_edit_batched(
         tb = torch.full((n,), t, dtype=torch.long, device=dev)
         with torch.enable_grad():
             out = p_sample_guidance(sched, model_fn_feat, im, tb, clip_denoised=clip_denoised, **kw)
-            edit_feats = regroup_features(out["inter_feat"])  # [N, 3, s, s, C]
-            loss = 0.0
-            for i in range(n):
-                motion, mask = drag_losses(edit_feats[i], features_batch[i, row], shape_problems[i],
-                                           loss_type)
-                loss = loss - motion - cof_t[i] * mask
-        (grad,) = torch.autograd.grad(loss, im)
-        x = out["sample"].detach() + out["variance"].detach() * (scale_t.reshape(bcast) * grad)
+            with span("drag_loss"):
+                edit_feats = regroup_features(out["inter_feat"])  # [N, 3, s, s, C]
+                loss = 0.0
+                for i in range(n):
+                    motion, mask = drag_losses(edit_feats[i], features_batch[i, row], shape_problems[i],
+                                               loss_type)
+                    loss = loss - motion - cof_t[i] * mask
+        with span("drag_backward"):
+            (grad,) = torch.autograd.grad(loss, im)
+        with span("drag_update"):
+            x = out["sample"].detach() + out["variance"].detach() * (scale_t.reshape(bcast) * grad)
     return x[:, None]
 
 

@@ -31,6 +31,7 @@ from ishapediting_tpu_torch.edit.features import (
     regroup_features,
 )
 from ishapediting_tpu_torch.ops.grid_sample import grid_sample_2d
+from ishapediting_tpu_torch.utils.trace import span
 
 
 class DragProblem(NamedTuple):
@@ -123,13 +124,16 @@ def make_drag_step(
                 variance=variance_override, variance_noise=variance_noise,
                 clip_denoised=clip_denoised,
             )
-            edit_feat = regroup_features(out["inter_feat"])[0]  # [3, s, s, C]
-            motion, mask = drag_losses(edit_feat, origin_feat, problem, loss_type)
-            loss = -motion - cof * mask
-        (grad,) = torch.autograd.grad(loss, im)
-        sample = out["sample"].detach()
-        variance = out["variance"].detach()
-        return sample + variance * (scale * grad), (motion.detach(), mask.detach())
+            with span("drag_loss"):
+                edit_feat = regroup_features(out["inter_feat"])[0]  # [3, s, s, C]
+                motion, mask = drag_losses(edit_feat, origin_feat, problem, loss_type)
+                loss = -motion - cof * mask
+        with span("drag_backward"):
+            (grad,) = torch.autograd.grad(loss, im)
+        with span("drag_update"):
+            sample = out["sample"].detach()
+            variance = out["variance"].detach()
+            return sample + variance * (scale * grad), (motion.detach(), mask.detach())
 
     return step
 

@@ -33,6 +33,7 @@ kernels included.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -54,6 +55,7 @@ from ishapediting_tpu_torch.ops.nn import (
     silu,
     timestep_embedding,
 )
+from ishapediting_tpu_torch.utils.trace import first_call, span
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +295,12 @@ class ResBlock(nn.Module):
         """``keep``: the dropout site's keep mask (train mode), ``p`` the rate."""
         x = h
         hh = _gn_silu(self.in_layers[0], h)
-        if self.layer.updown == "up":
-            hh, x = nearest_upsample_2x(hh), nearest_upsample_2x(x)
-        elif self.layer.updown == "down":
-            hh, x = avg_pool_2x(hh), avg_pool_2x(x)
+        if self.layer.updown != "none":
+            with span("resample"):
+                if self.layer.updown == "up":
+                    hh, x = nearest_upsample_2x(hh), nearest_upsample_2x(x)
+                else:
+                    hh, x = avg_pool_2x(hh), avg_pool_2x(x)
         hh = dense(self.in_layers[2], hh, padding=1)
         emb_out = dense(self.emb_layers[1], silu(emb)).to(hh.dtype)
         if self.layer.scale_shift:
@@ -309,7 +313,8 @@ class ResBlock(nn.Module):
         hh = dense(self.out_layers[3], hh, padding=1)
         if self.layer.in_ch != self.layer.out_ch:
             x = dense(self.skip_connection, x)
-        return x + hh
+        with span("residual"):
+            return x + hh
 
 
 class AttentionBlock(nn.Module):
@@ -326,10 +331,12 @@ class AttentionBlock(nn.Module):
 
     def forward(self, h: torch.Tensor, emb: torch.Tensor = None) -> torch.Tensor:
         n, hh, ww, c = h.shape
-        normed = self.norm(h).reshape(n, hh * ww, c)
+        with span("group_norm"):
+            normed = self.norm(h).reshape(n, hh * ww, c)
         att = qkv_attention(dense(self.qkv, normed), self.heads)
         out = dense(self.proj_out, att)
-        return h + out.reshape(n, hh, ww, c)
+        with span("residual"):
+            return h + out.reshape(n, hh, ww, c)
 
 
 class Downsample(nn.Module):
@@ -340,7 +347,8 @@ class Downsample(nn.Module):
 
     def forward(self, h, emb=None):
         if not hasattr(self, "op"):
-            return avg_pool_2x(h)
+            with span("resample"):
+                return avg_pool_2x(h)
         return dense(self.op, h, stride=2, padding=1)
 
 
@@ -351,7 +359,8 @@ class Upsample(nn.Module):
             self.conv = nn.Conv2d(layer.in_ch, layer.out_ch, 3, padding=1)
 
     def forward(self, h, emb=None):
-        h = nearest_upsample_2x(h)
+        with span("resample"):
+            h = nearest_upsample_2x(h)
         if not hasattr(self, "conv"):
             return h
         return dense(self.conv, h, padding=1)
@@ -401,6 +410,7 @@ class UNetModel(nn.Module):
         self.output_blocks = blocks(self.layout.output_blocks)
         ch = self.layout.out_ch_final
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(), nn.Conv2d(ch, cfg.out_channels, 3, padding=1))
+        self._signatures = set()  # of the forwards called so far (first_call)
 
     def forward(
         self,
@@ -413,18 +423,32 @@ class UNetModel(nn.Module):
         dropout_masks: Optional[Sequence[Optional[torch.Tensor]]] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``train``: apply the config's dropout with ``dropout_masks``, one
-        per site in ``dropout_sites`` order (``draw_dropout_masks``)."""
+        per site in ``dropout_sites`` order (``draw_dropout_masks``).
+
+        The call is the ``unet`` span. The first call of each signature
+        (input shape, dtype and device, ``feat_layer``, ``remat``, grad
+        mode) also runs inside a ``first_call`` span, which waits for the
+        device at its end: cuDNN searches its algorithms there."""
+        key = (tuple(x.shape), x.dtype, x.device, feat_layer, remat, torch.is_grad_enabled())
+        first = key not in self._signatures
+        if first:
+            self._signatures.add(key)
+        with span("unet"), (first_call(x.device) if first else contextlib.nullcontext()):
+            return self._forward(x, timesteps, feat_layer, y, remat, train, dropout_masks)
+
+    def _forward(self, x, timesteps, feat_layer, y, remat, train, dropout_masks):
         cfg = self.config
         if feat_layer >= len(self.output_blocks):
             raise ValueError(
                 f"feat_layer {feat_layer} out of range "
                 f"(model has {len(self.output_blocks)} output blocks)"
             )
-        emb = timestep_embedding(timesteps, cfg.model_channels)
-        emb = dense(self.time_embed[2], silu(dense(self.time_embed[0], emb)))
-        if cfg.num_classes is not None:
-            assert y is not None, "class-conditional model requires y"
-            emb = emb + embed(self.label_emb, y)
+        with span("embed"):
+            emb = timestep_embedding(timesteps, cfg.model_channels)
+            emb = dense(self.time_embed[2], silu(dense(self.time_embed[0], emb)))
+            if cfg.num_classes is not None:
+                assert y is not None, "class-conditional model requires y"
+                emb = emb + embed(self.label_emb, y)
 
         p = cfg.dropout if train else 0.0
         if p > 0.0 and dropout_masks is None:
@@ -437,7 +461,8 @@ class UNetModel(nn.Module):
 
         def run(block, h, emb, skip, keeps):
             if skip is not None:
-                h = torch.cat([h, skip], dim=-1)
+                with span("concat"):
+                    h = torch.cat([h, skip], dim=-1)
             for mod, keep in zip(block, keeps):
                 h = mod(h, emb) if keep is None else mod(h, emb, keep, p)
             return h
@@ -450,7 +475,8 @@ class UNetModel(nn.Module):
                 return checkpoint(run, block, h, emb, skip, keeps, use_reentrant=False)
             return run(block, h, emb, skip, keeps)
 
-        h = x.to(cfg.torch_compute_dtype)
+        with span("act_cast"):
+            h = x.to(cfg.torch_compute_dtype)
         hs = []
         for block in self.input_blocks:
             h = run_block(block, h)
@@ -460,9 +486,12 @@ class UNetModel(nn.Module):
         for i, block in enumerate(self.output_blocks):
             h = run_block(block, h, hs.pop())
             if i == feat_layer:
-                feat = h.float()
+                with span("act_cast"):
+                    feat = h.float()
 
-        h = _gn_silu(self.out[0], h.to(x.dtype))
+        with span("act_cast"):
+            h = h.to(x.dtype)
+        h = _gn_silu(self.out[0], h)
         out = dense(self.out[2], h, padding=1)
         return out.to(x.dtype), feat
 

@@ -62,6 +62,7 @@ import torch
 
 from ishapediting_tpu_torch.ops.attention import dense_qkv_attention
 from ishapediting_tpu_torch.ops.nn import effective_groups, group_norm, silu
+from ishapediting_tpu_torch.utils.trace import kernel_build, span
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -102,10 +103,12 @@ def record_launches():
 
 def _record(kernel: str, x: torch.Tensor, nbytes: int, tensor_flops: float = 0.0,
             fp32_flops: float = 0.0, tf32_flops: float = 0.0) -> None:
-    if _records is not None:
-        _records.append(dict(kernel=kernel, shape=tuple(x.shape), dtype=str(x.dtype)[6:],
-                             bytes=nbytes, tensor_flops=tensor_flops, fp32_flops=fp32_flops,
-                             tf32_flops=tf32_flops))
+    """Append one launch to the open ``record_launches`` list; a launch site
+    calls it only while one is open (``_records is not None``), so that no
+    launch counts bytes for a list nobody keeps."""
+    _records.append(dict(kernel=kernel, shape=tuple(x.shape), dtype=str(x.dtype)[6:],
+                         bytes=nbytes, tensor_flops=tensor_flops, fp32_flops=fp32_flops,
+                         tf32_flops=tf32_flops))
 
 
 def _nbytes(*ts) -> int:
@@ -183,7 +186,8 @@ def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_kernels())
+            with kernel_build():
+                lib = ctypes.CDLL(build_kernels())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.ishape_gn_stats.argtypes = [p, p] + [i] * 13 + [p]
             lib.ishape_gn_stats.restype = i
@@ -419,7 +423,8 @@ def gn_stats_cuda(x: torch.Tensor, groups: int) -> torch.Tensor:
         geo["vec"], *geo["block"], *geo["grid"][:2], geo["cluster"], geo["clusters"], _stream(x),
     ), "gn_stats")
     LAUNCHES["gn_stats"] += 1
-    _record("gn_stats", x, _nbytes(x, part), fp32_flops=3 * x.numel())
+    if _records is not None:
+        _record("gn_stats", x, _nbytes(x, part), fp32_flops=3 * x.numel())
     return part
 
 
@@ -471,9 +476,10 @@ def groupnorm_silu_cuda(x, scale, bias, num_groups=32, eps=1e-5, film=None):
     _require_cuda(x, "x", tuple(_GN_DTYPES))
     part = gn_stats_cuda(x, effective_groups(x.shape[-1], num_groups))
     y = gn_norm_cuda(x, part, scale, bias, eps, film)
-    n, c = x.shape[0], x.shape[-1]
-    _record("gn_norm", x, _nbytes(x, y, part) + 4 * (2 * c + (0 if film is None else 2 * n * c)),
-            fp32_flops=12 * x.numel())
+    if _records is not None:
+        n, c = x.shape[0], x.shape[-1]
+        _record("gn_norm", x, _nbytes(x, y, part) + 4 * (2 * c + (0 if film is None else 2 * n * c)),
+                fp32_flops=12 * x.numel())
     return y, part
 
 
@@ -744,8 +750,9 @@ def gn_bwd_reduce_cuda(x, part, gy, scale, bias, eps=1e-5, film=None, need=_GN_N
     lib = _load()
     _check(lib, lib.ishape_gn_bwd_reduce(ctypes.byref(args), _stream(x)), "gn_bwd_reduce")
     LAUNCHES["gn_bwd_reduce"] += 1
-    _record("gn_bwd_reduce", x, _nbytes(x, gy, part, scale, bias, *(film or ()), sums, stats, dscale, dbias,
-                                        dfs, dfb), fp32_flops=16 * x.numel())
+    if _records is not None:
+        _record("gn_bwd_reduce", x, _nbytes(x, gy, part, scale, bias, *(film or ()), sums, stats, dscale,
+                                            dbias, dfs, dfb), fp32_flops=16 * x.numel())
     return GnBwdOut(sums, stats, dscale, dbias, dfs, dfb)
 
 
@@ -765,7 +772,8 @@ def gn_bwd_apply_cuda(x, gy, stats, scale, bias, film=None):
     lib = _load()
     _check(lib, lib.ishape_gn_bwd_apply(ctypes.byref(args), _stream(x)), "gn_bwd_apply")
     LAUNCHES["gn_bwd_apply"] += 1
-    _record("gn_bwd_apply", x, _nbytes(x, gy, dx, stats, scale, bias, *(film or ())), fp32_flops=18 * x.numel())
+    if _records is not None:
+        _record("gn_bwd_apply", x, _nbytes(x, gy, dx, stats, scale, bias, *(film or ())), fp32_flops=18 * x.numel())
     return dx
 
 
@@ -799,30 +807,31 @@ class GroupNormSiLU(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        *saved, part = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        if part is not None:
-            x, scale, bias, fs, fb = saved
-            grads = gn_silu_bwd_cuda(x, part, gy, scale, bias, ctx.eps,
-                                     None if fs is None else (fs, fb), need=need[:5])
-            return (*grads, None, None)
-        inputs = [
-            None if t is None else t.detach().requires_grad_(need[i])
-            for i, t in enumerate(saved)
-        ]
-        x, scale, bias, fs, fb = inputs
-        with torch.enable_grad():
-            y = groupnorm_silu_plain(
-                x, scale, bias, ctx.num_groups, ctx.eps,
-                None if fs is None else (fs, fb),
-            )
-        wanted = [t for t in inputs if t is not None and t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, gy, allow_unused=True))
-        out = [
-            next(grads) if t is not None and t.requires_grad else None
-            for t in inputs
-        ]
-        return (*out, None, None)
+        with span("gn_silu_bwd"):
+            *saved, part = ctx.saved_tensors
+            need = ctx.needs_input_grad
+            if part is not None:
+                x, scale, bias, fs, fb = saved
+                grads = gn_silu_bwd_cuda(x, part, gy, scale, bias, ctx.eps,
+                                         None if fs is None else (fs, fb), need=need[:5])
+                return (*grads, None, None)
+            inputs = [
+                None if t is None else t.detach().requires_grad_(need[i])
+                for i, t in enumerate(saved)
+            ]
+            x, scale, bias, fs, fb = inputs
+            with torch.enable_grad():
+                y = groupnorm_silu_plain(
+                    x, scale, bias, ctx.num_groups, ctx.eps,
+                    None if fs is None else (fs, fb),
+                )
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, gy, allow_unused=True))
+            out = [
+                next(grads) if t is not None and t.requires_grad else None
+                for t in inputs
+            ]
+            return (*out, None, None)
 
 
 def groupnorm_silu(x, scale, bias, num_groups=32, eps=1e-5, film=None):
@@ -831,7 +840,8 @@ def groupnorm_silu(x, scale, bias, num_groups=32, eps=1e-5, film=None):
     scale-shift-norm FiLM, reference: unet.py:245-252)."""
     _check_device(x)
     fs, fb = (None, None) if film is None else film
-    return GroupNormSiLU.apply(x, scale, bias, fs, fb, num_groups, eps)
+    with span("gn_silu"):  # around apply: the Function's own host time is the span's
+        return GroupNormSiLU.apply(x, scale, bias, fs, fb, num_groups, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -952,7 +962,6 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     route = attention_route(qkv.dtype, ch)
     out = torch.empty((n, t, num_heads * ch), dtype=qkv.dtype, device=qkv.device)
     lib = _load()
-    products = 4.0 * n * num_heads * t * t * ch  # flops of Q K^T and P V
     if route == "attention":
         geo = attention_geometry(n, t, num_heads, ch)
         # The tensor map wants a 16-byte aligned base and row and sample
@@ -962,24 +971,20 @@ def attention_qkv_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
         _check(lib, lib.ishape_attention(
             qkv.data_ptr(), out.data_ptr(), n, t, num_heads, ch, geo["keys_per_tile"], _stream(qkv)
         ), "attention")
-        # The products on the tensor cores; the softmax, about 4 fp32
-        # operations per logit, on the FMA units.
-        _record(route, qkv, _nbytes(qkv, out), tensor_flops=products,
-                fp32_flops=4.0 * n * num_heads * t * t)
     else:
         geo = attention_generic_geometry(n, t, num_heads, ch, qkv.dtype)
         _check(lib, lib.ishape_attention_generic(
             qkv.data_ptr(), out.data_ptr(), _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch,
             geo["chp"], _stream(qkv)
         ), "attention_generic")
-        # bf16: the products on the bf16 tensor cores; fp32: three TF32
-        # passes of each (3xTF32). The softmax on the FMA units.
-        softmax = 4.0 * n * num_heads * t * t
-        if qkv.dtype == torch.bfloat16:
-            _record(route, qkv, _nbytes(qkv, out), tensor_flops=products, fp32_flops=softmax)
-        else:
-            _record(route, qkv, _nbytes(qkv, out), tf32_flops=3 * products, fp32_flops=softmax)
     LAUNCHES[route] += 1
+    if _records is not None:
+        # The products (Q K^T and P V) on the bf16 tensor cores, or in fp32
+        # as three TF32 passes of each (3xTF32, the generic route); the
+        # softmax, about 4 fp32 operations per logit, on the FMA units.
+        products = 4.0 * n * num_heads * t * t * ch
+        flops = dict(tensor_flops=products) if qkv.dtype == torch.bfloat16 else dict(tf32_flops=3 * products)
+        _record(route, qkv, _nbytes(qkv, out), fp32_flops=4.0 * n * num_heads * t * t, **flops)
     return out
 
 
@@ -1175,8 +1180,9 @@ def attn_bwd_dq_cuda(qkv, out, gout, num_heads, dqkv):
         geo["out_cols"], _stream(qkv),
     ), "attn_bwd_dq")
     LAUNCHES["attn_bwd_dq"] += 1
-    _record("attn_bwd_dq", qkv, _nbytes(qkv, out, gout, lse, d) + _nbytes(dqkv) // 3,
-            **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=3))
+    if _records is not None:
+        _record("attn_bwd_dq", qkv, _nbytes(qkv, out, gout, lse, d) + _nbytes(dqkv) // 3,
+                **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=3))
     return lse, d, sq
 
 
@@ -1207,8 +1213,9 @@ def attn_bwd_dkdv_cuda(qkv, gout, lse, d, num_heads, dqkv, sq=None):
         _ATTN_DTYPES[qkv.dtype], n, t, num_heads, ch, geo["out_cols"], _stream(qkv),
     ), "attn_bwd_dkdv")
     LAUNCHES["attn_bwd_dkdv"] += 1
-    _record("attn_bwd_dkdv", qkv, _nbytes(qkv, gout, lse, d) + 2 * _nbytes(dqkv) // 3,
-            **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=4))
+    if _records is not None:
+        _record("attn_bwd_dkdv", qkv, _nbytes(qkv, gout, lse, d) + 2 * _nbytes(dqkv) // 3,
+                **_attn_bwd_flops(qkv, n, t, num_heads, ch, products=4))
 
 
 def attention_bwd_cuda(qkv, out, gout, num_heads):
@@ -1239,17 +1246,19 @@ class QKVAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         qkv, out = ctx.saved_tensors
-        if out is not None:
-            return attention_bwd_cuda(qkv, out, gout, ctx.num_heads), None
-        qkv = qkv.detach().requires_grad_(True)
-        with torch.enable_grad():
-            out = dense_qkv_attention(qkv, ctx.num_heads)
-        (g,) = torch.autograd.grad(out, qkv, gout)
-        return g, None
+        with span("attn_bwd"):
+            if out is not None:
+                return attention_bwd_cuda(qkv, out, gout, ctx.num_heads), None
+            qkv = qkv.detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = dense_qkv_attention(qkv, ctx.num_heads)
+            (g,) = torch.autograd.grad(out, qkv, gout)
+            return g, None
 
 
 def attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Fused ADM attention; same contract as ``dense_qkv_attention``
     (qkv [N, T, H*3*ch], per-head q/k/v contiguous; reference: unet.py:328-354)."""
     _check_device(qkv)
-    return QKVAttention.apply(qkv, num_heads)
+    with span("attention"):
+        return QKVAttention.apply(qkv, num_heads)

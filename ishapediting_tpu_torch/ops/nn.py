@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ishapediting_tpu_torch.utils.trace import span
+
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
@@ -57,17 +59,34 @@ def conv2d(
     padding: int = 0,
 ) -> torch.Tensor:
     """2D convolution, NHWC x OIHW -> NHWC, computed in x.dtype. The bias is
-    added after the product is rounded to x.dtype, as in the JAX package."""
-    out = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), stride=stride, padding=padding)
-    out = out.permute(0, 2, 3, 1)
-    return out if b is None else out + b.to(out.dtype)
+    added after the product is rounded to x.dtype, as in the JAX package
+    (spans ``weight_cast``, ``conv`` or ``conv_fp32``, ``bias_add``)."""
+    w, b = _cast_params(w, b, x.dtype)
+    with span("conv_fp32" if x.dtype == torch.float32 else "conv"):
+        out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
+    return _add_bias(out.permute(0, 2, 3, 1), b)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense layer; ``w`` stored (out, in). Computed in x.dtype, the bias
     added after the product is rounded (the JAX package's rounding points)."""
-    out = F.linear(x, w.to(x.dtype))
-    return out if b is None else out + b.to(out.dtype)
+    w, b = _cast_params(w, b, x.dtype)
+    with span("linear"):
+        out = F.linear(x, w)
+    return _add_bias(out, b)
+
+
+def _cast_params(w, b, dtype):
+    """The layer's weight and bias in the activation dtype."""
+    with span("weight_cast"):
+        return w.to(dtype), None if b is None else b.to(dtype)
+
+
+def _add_bias(out, b):
+    if b is None:
+        return out
+    with span("bias_add"):
+        return out + b
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ from ishapediting_tpu_torch.core.diffusion import (
 )
 from ishapediting_tpu_torch.core.schedule import Schedule
 from ishapediting_tpu_torch.parallel.mesh import DataMesh, broadcast_flat, gather, make_mesh, world
+from ishapediting_tpu_torch.utils.trace import span
 
 SAMPLERS = ("ddpm", "ddim", "dpm")
 
@@ -174,7 +175,8 @@ def sample_batches(
             out = sample_sharded(sched, model_fn, m, batch_size=n, latent_shape=latent_shape,
                                  generator=gen, sampler=sampler, clip_denoised=clip_denoised)
         out = _to_world(out, (n,) + tuple(latent_shape), m)
-        samples.append(out.cpu().numpy())
+        with span("to_host"):
+            samples.append(out.cpu().numpy())
         done += n
         if on_batch is not None:
             on_batch(batch_idx + 1, done)

@@ -6,9 +6,10 @@ actually uses (reference: logger.py:211-316,405-476): ``logkv``/``dumpkvs``,
 (stdout / csv / jsonl / tensorboard-if-available), configured by
 ``ISHAPE_LOGDIR`` / ``ISHAPE_LOG_FORMAT`` env vars.
 
-Additions over the reference: ``torch.profiler`` integration
-(``trace_annotation`` names a region of the timeline; ``start_trace`` /
-``stop_trace`` record CPU and CUDA activity into a trace under a directory).
+Additions over the reference: ``torch.profiler`` integration, from
+``utils/trace.py`` (``span``, also named ``trace_annotation``, marks a region
+of the timeline and keeps its times; ``start_trace`` / ``stop_trace`` record
+CPU and CUDA activity into a trace under a directory).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import sys
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
+
+from ishapediting_tpu_torch.utils.trace import span, start_trace, stop_trace, trace_annotation  # noqa: F401
 
 DEBUG, INFO, WARN, ERROR = 10, 20, 30, 40
 
@@ -226,39 +229,3 @@ def distributed_mean_kvs(kvs: Dict, counts: Optional[Dict] = None) -> Dict:
     n = len(keys)
     mean = (sums[:n] / sums[n:]).tolist()
     return dict(zip(keys, mean))
-
-
-_trace = None
-
-
-@contextlib.contextmanager
-def trace_annotation(name: str):
-    """Annotate a region in the ``torch.profiler`` timeline."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield
-
-
-def start_trace(log_dir: str):
-    """Record CPU and (where present) CUDA activity until ``stop_trace``;
-    the trace is written under ``log_dir`` (TensorBoard's trace layout)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    global _trace
-    if _trace is not None:
-        raise RuntimeError("a trace is already running")
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    _trace = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir))
-    _trace.start()
-
-
-def stop_trace():
-    global _trace
-    if _trace is None:
-        raise RuntimeError("no trace is running")
-    trace, _trace = _trace, None
-    trace.stop()
