@@ -30,7 +30,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel's autograd Function (kernel forward, backward kernels) against
    autograd through the plain composition, at every chairs input at batch
    1 and at the fp32 UNets' inputs, with and without FiLM, one launch of
-   each backward kernel per call;
+   each backward kernel per call; then the bias epilogue
+   (``bias_add_kernel``, ``bias_residual_kernel``) at every [rows, C],
+   dtype and form that a forward of either benchmark configuration (chairs,
+   adm128) gives it at batch 1, 2 and 32, into a new tensor and into the
+   product's own buffer, ``torch.equal`` to the plain composition (under
+   autograd the composition itself, with no launch), and timed against the
+   eager adds and its bytes bound (``tools/bias_epilogue_bench.py``);
 3. check the whole UNet on the card against the same module on the CPU
    (plain versions) on a small input: a bf16 torso at head dim 64 (the
    wgmma attention kernel), then the ``tiny`` preset (fp32 torso, head dim
@@ -59,12 +65,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    in every run of phases 3 to 8 the launch counters are reset just before
    it and read just after it, and each must equal the UNet forwards of that
    run times the kernel's calls per forward (a drag or fit step is one
-   forward) plus, for each backward pass, the two backward kernels of every
-   GroupNorm-SiLU and attention node it runs (a drag step's loss reaches
-   the blocks ``models/unet.py::kernel_calls_recomputed`` lists for its
-   feature tap, a fit step's every call of the forward); under remat the
-   backward also runs those blocks' forward kernels a second time; chairs
-   runs launch no generic attention, the fp32 runs no wgmma attention;
+   forward; the bias epilogues ``models/unet.py::epilogue_calls_per_forward``
+   in each forward that wants no gradient, the time-embedding path's in one
+   that wants it for its input alone (``film_epilogues``), plus three plain
+   ones for each MLP call of the triplane decoder on the card that wants
+   none, which ``DecoderCounter`` counts) plus, for each backward pass, the two
+   backward kernels of every GroupNorm-SiLU and attention node it runs (a
+   drag step's loss reaches the blocks
+   ``models/unet.py::kernel_calls_recomputed`` lists for its feature tap, a
+   fit step's every call of the forward); under remat the backward also
+   runs those blocks' GroupNorm-SiLU and attention kernels and FiLM
+   projections a second time;
+   chairs runs launch no generic attention, the fp32 runs no wgmma
+   attention;
 5. the serving surfaces on the same chairs engine: ``fit_real_shape_direct``
    of the first 256^3 mesh at the published ``FitConfig`` (its loss must
    fall), ``morph`` of two ``sample_latent``s at 3 frames, ``cli.morph``,
@@ -226,6 +239,9 @@ TPU_KERNELS = {  # the Pallas kernel, or for a backward kernel the custom_vjp's 
     "gn_bwd_apply": "ishapediting_tpu/ops/pallas_kernels.py:214",
     "attn_bwd_dq": "ishapediting_tpu/ops/pallas_kernels.py:311",
     "attn_bwd_dkdv": "ishapediting_tpu/ops/pallas_kernels.py:311",
+    # no TPU kernel: XLA fuses the JAX package's bias adds into its convolutions, and its residual adds
+    "bias_add": "none: ishapediting_tpu/ops/nn.py:101 (out + b), fused by XLA",
+    "bias_residual": "none: ishapediting_tpu/models/unet.py:465,478 (x + hh, h + out), fused by XLA",
 }
 SOURCES = {
     "gn_stats": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
@@ -236,6 +252,8 @@ SOURCES = {
     "gn_bwd_apply": "ishapediting_tpu_torch/csrc/groupnorm_silu.cu",
     "attn_bwd_dq": "ishapediting_tpu_torch/csrc/attention_bwd_hopper.cu",  # the headline row's route
     "attn_bwd_dkdv": "ishapediting_tpu_torch/csrc/attention_bwd_hopper.cu",
+    "bias_add": "ishapediting_tpu_torch/csrc/bias_epilogue.cu",
+    "bias_residual": "ishapediting_tpu_torch/csrc/bias_epilogue.cu",
 }
 BWD_ATTN_SOURCES = {  # each attention backward row's source, by hk.attention_bwd_route
     "hopper": "ishapediting_tpu_torch/csrc/attention_bwd_hopper.cu",
@@ -722,7 +740,7 @@ def backward_checks(hk, dev, report) -> None:
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {"gn": 0.0, "attention": 0.0, "attention_generic": 0.0}
     cases = [(h, w, c, dt) for h, w, c, dt in CHAIRS_GN] + [(h, w, c, FP32) for h, w, c in FP32_GN]
-    hk.reset_launch_counts()
+    reset(hk)
     for h, w, c, dtype in cases:
         for film in (False, True):
             x, scale, bias, f = gn_inputs(gen, (1, h, w, c), dtype, film, dev)
@@ -766,6 +784,99 @@ def backward_checks(hk, dev, report) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 2, bias epilogue: every shape the benchmark configurations give it
+# ---------------------------------------------------------------------------
+
+# the epilogue's timed rows: (rows, C, dtype, form), the first of each kernel its headline
+EPILOGUE_TIMED = {
+    "bias_add": [(32 * 128 * 128, 256, "bfloat16", "plain"), (32 * 32 * 32, 1536, "bfloat16", "plain"),
+                 (32 * 128 * 128, 192, "float32", "plain"), (32 * 128 * 128, 6, "float32", "plain")],
+    "bias_residual": [(32 * 128 * 128, 256, "bfloat16", "fused"), (32 * 128 * 128, 256, "bfloat16", "fused_skip"),
+                      (32 * 32 * 32, 512, "bfloat16", "fused_skip"), (32 * 8 * 8, 1024, "bfloat16", "fused")],
+}
+
+
+def epilogue_checks(hk, dev, report) -> None:
+    """The bias epilogue at every ([rows, C], dtype, form) that a forward of
+    either benchmark configuration (``tools/bias_epilogue_bench.py``'s
+    ``cell_configs``) gives it at batch 1, 2 (the main path's) and 32 (the
+    benchmark's): the kernel into a new tensor and, with no gradient
+    wanted, into y's own buffer, each ``torch.equal`` to the plain
+    composition; each launch counted. Then, under autograd, the plain
+    composition itself (output and gradients bit-equal, no launch, y
+    untouched), and each kernel's device ms against its bytes bound and the
+    eager adds it replaced at ``EPILOGUE_TIMED``."""
+    from ishapediting_tpu_torch.tools import bias_epilogue_bench as beb
+
+    say("[2] bias epilogue against the plain composition at every shape of a chairs and an adm128 forward "
+        "(batch 1, 2, 32)")
+    shapes = sorted({c for cfg in beb.cell_configs().values() for batch in (1, 2, 32)
+                     for c in beb.forward_epilogues(cfg, batch)}, key=str)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    reset(hk)
+    worst = 0.0
+    for (rows, c), dtype, form in shapes:
+        y, b, res, rb = beb.inputs(rows, c, dtype, form, gen)
+        want = hk.bias_epilogue_plain(y, b, res, rb)
+        new = hk.bias_epilogue_cuda(y, b, res, rb)
+        with torch.no_grad():
+            mine = hk.bias_epilogue(y, b, res, rb)  # into y's own buffer
+        ok = torch.equal(new, want) and torch.equal(mine, want) and mine.data_ptr() == y.data_ptr()
+        worst = max(worst, float((new.float() - want.float()).abs().max()))
+        if not ok:
+            fail(f"bias epilogue [{rows}, {c}] {dtype} {form}: not bit-equal to the plain composition "
+                 f"(largest difference {worst:g})")
+        del y, b, res, rb, want, new, mine
+    torch.cuda.synchronize()
+    n_plain = sum(f == "plain" for _, _, f in shapes)
+    want_n = dict(zero_counts(hk), bias_add=2 * n_plain, bias_residual=2 * (len(shapes) - n_plain))
+    if dict(hk.LAUNCHES) != want_n:
+        fail(f"bias epilogue checks: launches {dict(hk.LAUNCHES)} are not {want_n}")
+    say(f"  {len(shapes)} shapes ({n_plain} plain, {len(shapes) - n_plain} fused; C from "
+        f"{min(s[0][1] for s in shapes)} to {max(s[0][1] for s in shapes)}, bf16 and fp32): bit-equal, "
+        f"into a new tensor and into y's buffer")
+    grad_worst = 0.0
+    reset(hk)
+    for dtype in (BF16, FP32):
+        for form in ("plain", "fused", "fused_skip"):
+            y, b, res, rb = beb.inputs(2 * 16 * 16, 256, dtype, form, gen)
+            y0, dout = y.clone(), torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+            got, ref = [], []
+            for fn, out in ((hk.bias_epilogue, got), (hk.bias_epilogue_plain, ref)):
+                leaves = [None if t is None else t.detach().requires_grad_(True) for t in (y, b, res, rb)]
+                o = fn(*leaves)
+                out.append(o)
+                out.extend(torch.autograd.grad(o, [t for t in leaves if t is not None], dout))
+            for g, r in zip(got, ref):
+                if g.dtype != r.dtype or not torch.equal(g, r):
+                    fail(f"bias epilogue under autograd, {form} {dtype}: output or gradient differs from "
+                         f"autograd through the composition")
+                grad_worst = max(grad_worst, float((g.float() - r.float()).abs().max()))
+            if not torch.equal(y, y0):
+                fail(f"bias epilogue under autograd, {form} {dtype}: wrote into y")
+    if any(hk.LAUNCHES.values()):
+        fail(f"bias epilogue under autograd launched {dict(hk.LAUNCHES)}")
+    say("  under autograd (bf16 and fp32, three forms): the plain composition, no launch, gradients bit-equal")
+    for kernel, timed in EPILOGUE_TIMED.items():
+        rows = []
+        for r, c, dtype, form in timed:
+            row = beb.bench(r, c, dtype, form)
+            if not row["bit_equal"]:
+                fail(f"bias epilogue [{r}, {c}] {dtype} {form}: the timed run is not bit-equal")
+            rows.append(dict(shape=[r, c], dtype=dtype, form=form, ms=row["kernel_ms"], plain_ms=row["eager_ms"],
+                             bound_ms=row["bound_ms"], library_ms=None, vec=row["vec"], max_abs_err=0.0))
+            say(f"    {kernel} [{r}, {c}] {dtype} {form}: {row['kernel_ms']:.4f} ms ({row['kernel_pct_of_bound']:.1f}% "
+                f"of its bound {row['bound_ms']:.4f}), the eager adds {row['eager_ms']:.4f} ms, vectors of {row['vec']}")
+        head = rows[0]
+        report[kernel] = dict(
+            shape=head["shape"], dtype=head["dtype"], form=head["form"], max_abs_err=worst,
+            tol="0: torch.equal at every shape of both configurations at batch 1, 2, 32",
+            ms=head["ms"], plain_ms=head["plain_ms"], library_ms=None,  # no one PyTorch call adds a bias alone
+            bound_ms=head["bound_ms"], bound_by="bytes", shapes=rows, backward_rel_err=grad_worst,
+            checked_shapes=len(shapes))
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the whole UNet, card against CPU, small input
 # ---------------------------------------------------------------------------
 
@@ -792,7 +903,7 @@ def unet_card_check(hk, dev, cfg, tol, what):
     """One UNet forward on the card (kernels) against the same module on
     the CPU (plain versions), small input: relative L2 error of the output
     and the feature tap <= ``tol``, and the launch counts of one forward."""
-    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+    from ishapediting_tpu_torch.models.unet import epilogue_calls_per_forward
 
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(5)
@@ -802,15 +913,19 @@ def unet_card_check(hk, dev, cfg, tol, what):
     with torch.no_grad():
         out_c, feat_c = model(x, t, feat_layer=1)
         model.to(dev)
-        hk.reset_launch_counts()
+        reset(hk)
         out_g, feat_g = model(x.to(dev), t.to(dev), feat_layer=1)
     torch.cuda.synchronize()
-    gn, attn = kernel_calls_per_forward(cfg)
-    want = dict(zero_counts(hk), gn_stats=gn, gn_norm=gn)
+    gn, attn, plain, fused, _ = calls_per_forward(cfg)
+    want = dict(zero_counts(hk), gn_stats=gn, gn_norm=gn, bias_add=plain, bias_residual=fused)
     want[hk.attention_route(cfg.torch_compute_dtype, cfg.num_head_channels)] = attn
-    say(f"  {what}: launches {dict(hk.LAUNCHES)} (want {want})")
-    if dict(hk.LAUNCHES) != want:
-        fail(f"UNet ({what}) launches {dict(hk.LAUNCHES)} are not {want}")
+    got = dict(hk.LAUNCHES)
+    say(f"  {what}: launches {got} (want {want})")
+    if got != want:
+        fail(f"UNet ({what}) launches {got} are not {want}")
+    if (plain, fused) != epilogue_calls_per_forward(cfg):  # the smoke's own count, against the layout's
+        fail(f"UNet ({what}): the smoke counts {(plain, fused)} epilogues, models/unet.py "
+             f"{epilogue_calls_per_forward(cfg)}")
     for name, a, b in (("output", out_g, out_c), ("feature tap", feat_g, feat_c)):
         a = a.to(cpu).float()
         rel = float((a - b).norm() / b.norm())
@@ -826,16 +941,15 @@ def edit_gate_on_card(hk, counter, totals, device="cuda") -> dict:
     generic attention), launch counts exact, then the same run on the CPU:
     per-step motion losses within 1e-3 of the CPU's (relative)."""
     from ishapediting_tpu_torch.edit.gate import engine_from_asset, gate_drags
-    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     engine, asset = engine_from_asset(device=device)
-    per = kernel_calls_per_forward(engine.config.unet)
+    per = calls_per_forward(engine.config.unet)
     route = hk.attention_route(engine.config.unet.torch_compute_dtype,
                                engine.config.unet.num_head_channels)
     say("  edit gate (tests/assets/edit_gate.npz, toy fp32 UNet 16x16x24, w_time 12): "
         "inversion with the recorded noises, scale-0 and guided replay drags, chunk 4")
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     base, guided, original, edited = gate_drags(engine, asset)
@@ -881,8 +995,111 @@ class ForwardCounter:
         self._handle.remove()
 
 
+class DecoderCounter:
+    """Counts the triplane decoder's MLP calls that launch its bias
+    epilogues (on the card, no gradient wanted: decodes, not decoder
+    losses) by wrapping ``ops/triplane.py::_mlp_from_sincos``, through which
+    every decode goes (no code change). Each runs the decoder's three dense
+    layers, so launches three plain epilogues; ``reset`` zeroes the count
+    with the launch counters."""
+
+    LAYERS = 3
+
+    def __init__(self):
+        from ishapediting_tpu_torch.ops import hopper_kernels as hk
+        from ishapediting_tpu_torch.ops import triplane
+
+        self.n = 0
+        real = triplane._mlp_from_sincos
+
+        def counting(dec, sin_x, cos_x, compute_dtype):
+            params = (p for i in (1, 3, 5) for p in dec[i].parameters())
+            if sin_x.is_cuda and sin_x.numel() and not hk.needs_grad(sin_x, cos_x, *params):
+                self.n += 1
+            return real(dec, sin_x, cos_x, compute_dtype)
+
+        triplane._mlp_from_sincos = counting
+
+
+DECODER = None  # the process's DecoderCounter, made by main()
+
+
+def reset(hk) -> None:
+    """Zero the launch counters and the decoder's call count."""
+    hk.reset_launch_counts()
+    DECODER.n = 0
+
+
+def with_decoder(want: dict) -> dict:
+    """``want`` plus the plain bias epilogues of the decoder calls since the
+    last ``reset``."""
+    return dict(want, bias_add=want.get("bias_add", 0) + DecoderCounter.LAYERS * DECODER.n)
+
+
 def zero_counts(hk) -> dict:
     return {k: 0 for k in hk.LAUNCHES}
+
+
+def epilogues(ucfg, cut_min=None) -> tuple:
+    """(plain, fused) bias epilogues of one forward that wants no gradient
+    (under autograd none launches: ``hk.bias_epilogue`` takes the plain
+    composition) of a UNet of config ``ucfg``. ``cut_min``: layers with that
+    many output features or more are cut over the model axis
+    (``parallel/tensor.py``): each adds its bias on its slice (a plain
+    epilogue), and a ResBlock or attention block whose last product is cut
+    adds its residual by the plain composition. Uncut, it is
+    ``models/unet.py::epilogue_calls_per_forward``, which
+    ``unet_card_check`` holds it to."""
+    from ishapediting_tpu_torch.models.unet import build_layout
+
+    def layer(l):
+        cut = cut_min is not None and l.out_ch >= cut_min
+        if l.kind == "res":  # conv1, FiLM; conv2 with the skip conv and the residual, or each alone when cut
+            return (2 + 1 + (l.in_ch != l.out_ch), 0) if cut else (2, 1)
+        if l.kind == "attn":  # qkv; the projection with the residual, or alone when cut
+            return (2, 0) if cut else (1, 1)
+        return int(l.use_conv), 0  # the input conv, a resample's conv
+
+    layout = build_layout(ucfg)
+    counts = [layer(l) for b in (*layout.input_blocks, layout.middle_block, *layout.output_blocks) for l in b]
+    # and outside the blocks: the time MLP's two dense layers, the output conv
+    return 3 + sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+def film_epilogues(ucfg, recompute=None) -> int:
+    """Plain bias epilogues that a forward under autograd still launches
+    when only its input wants the gradient (drag and fit steps; the UNet's
+    weights are frozen): nothing on the time embedding's path wants one, so
+    the time MLP's two dense layers and each ResBlock's FiLM projection take
+    the kernel. ``recompute`` (the feature tap's output block, or "head"):
+    the FiLM projections that a remat backward reruns, one per ResBlock of
+    the blocks it recomputes (``kernel_calls_recomputed``'s)."""
+    from ishapediting_tpu_torch.models.unet import build_layout
+
+    layout = build_layout(ucfg)
+    blocks = [*layout.input_blocks, layout.middle_block]
+    if recompute is None:
+        return 2 + sum(l.kind == "res" for b in blocks + list(layout.output_blocks) for l in b)
+    n = len(layout.output_blocks) if recompute == "head" else recompute + 1
+    return sum(l.kind == "res" for b in blocks + list(layout.output_blocks[:n]) for l in b)
+
+
+def calls_per_forward(ucfg, cut_min=None) -> tuple:
+    """(GroupNorm-SiLU calls, attention calls, plain epilogues, fused
+    epilogues) of one forward that wants no gradient (``epilogues``), and
+    the plain epilogues of one that wants it for its input alone
+    (``film_epilogues``)."""
+    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
+
+    return kernel_calls_per_forward(ucfg) + epilogues(ucfg, cut_min=cut_min) + (film_epilogues(ucfg),)
+
+
+def calls_recomputed(ucfg, feat_layer) -> tuple:
+    """What a remat drag step's backward recomputes (its feature tap at
+    ``feat_layer``): GroupNorm-SiLU calls, attention calls, FiLM epilogues."""
+    from ishapediting_tpu_torch.models.unet import kernel_calls_recomputed
+
+    return kernel_calls_recomputed(ucfg, feat_layer) + (film_epilogues(ucfg, feat_layer),)
 
 
 def backward_nodes(ucfg, feat_layer: int = -1) -> tuple:
@@ -904,24 +1121,32 @@ def backward_launches(hk, ucfg, feat_layer: int = -1, steps: int = 1) -> dict:
                 attn_bwd_dq=attn * steps, attn_bwd_dkdv=attn * steps)
 
 
-def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", again=(0, 0), steps=0,
+def check_counts(hk, phase, forwards, per_fwd, totals, attn_kernel="attention", again=(0, 0, 0), steps=0,
                  back=(0, 0)):
     """Launches of the run just made: each GroupNorm-SiLU call launches
-    gn_stats and gn_norm, each attention call ``attn_kernel`` only; each of
-    ``steps`` backward passes launches gn_bwd_reduce and gn_bwd_apply for
+    gn_stats and gn_norm, each attention call ``attn_kernel`` only, each
+    forward that wants no gradient its plain and fused bias epilogues, one
+    that wants it for its input its time-embedding path's (``per_fwd``:
+    ``calls_per_forward``), and the decoder's calls theirs
+    (``with_decoder``); each of ``steps`` backward passes (each after one
+    forward under autograd) launches gn_bwd_reduce and gn_bwd_apply for
     each of ``back[0]`` GroupNorm-SiLU nodes and attn_bwd_dq and
     attn_bwd_dkdv for each of ``back[1]`` attention nodes
     (``backward_nodes``), and under remat also recomputes ``again``
-    (GroupNorm-SiLU, attention) calls."""
-    gn, attn = per_fwd
+    (``calls_recomputed``)."""
+    gn, attn, plain, fused, film = per_fwd
+    quiet = forwards - steps  # the forwards that want no gradient
     want = dict(zero_counts(hk), gn_stats=gn * forwards + again[0] * steps,
                 gn_norm=gn * forwards + again[0] * steps, gn_bwd_reduce=back[0] * steps,
-                gn_bwd_apply=back[0] * steps, attn_bwd_dq=back[1] * steps, attn_bwd_dkdv=back[1] * steps)
+                gn_bwd_apply=back[0] * steps, attn_bwd_dq=back[1] * steps, attn_bwd_dkdv=back[1] * steps,
+                bias_add=plain * quiet + (film + again[2]) * steps, bias_residual=fused * quiet)
     want[attn_kernel] = attn * forwards + again[1] * steps
+    want = with_decoder(want)
     got = dict(hk.LAUNCHES)
     extra = (f", {steps} backward passes of {back[0]}/{back[1]} nodes, {again[0] * steps}/{again[0] * steps}/"
-             f"{again[1] * steps} forward launches recomputed" if steps else "")
-    say(f"  launches in {phase}: {got} for {forwards} UNet forwards{extra} (want {want})")
+             f"{again[1] * steps}/{again[2] * steps} forward launches recomputed" if steps else "")
+    say(f"  launches in {phase}: {got} for {forwards} UNet forwards and {DECODER.n} decoder calls{extra} "
+        f"(want {want})")
     if forwards <= 0 or got != want:
         fail(f"{phase}: launch counts {got} are not {want}")
     for k, v in got.items():
@@ -944,7 +1169,7 @@ def run_cli(hk, counter, per_fwd, totals, sampler_flag, phase,
     say(f"  python -m ishapediting_tpu_torch.cli.generate {' '.join(argv)}")
     buf = io.StringIO()
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -986,7 +1211,7 @@ def run_engine(hk, counter, per_fwd, totals, cfg, label, phase="engine",
     say(f"  DragEngine({label}).update_latent_params(seed=0) -> get_mesh at {res}^3")
     engine = DragEngine(cfg, seed=0, device=device)
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     lat = engine.update_latent_params(seed=0)
@@ -1021,7 +1246,7 @@ def counted(hk, counter, per_fwd, totals, phase, fn, forwards, **recompute):
     ``steps`` may be a function, called after the run). Returns (fn's
     result, wall s, peak device GiB of the run)."""
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1344,28 +1569,27 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
     from ishapediting_tpu_torch.cli.batch_edit import main as batch_main
     from ishapediting_tpu_torch.cli.morph import main as morph_main
     from ishapediting_tpu_torch.edit.batch import drag_edit_batched, fit_real_shapes_batched
-    from ishapediting_tpu_torch.models.unet import kernel_calls_recomputed
 
     cfg = engine.config
     steps = engine.sched.num_timesteps
     w_time = BATCH_W_TIME
     out = {}
 
-    # -- the direct fit (decoder only: no UNet forward, no launch) ----------
+    # -- the direct fit (decoder only: no UNet forward, the decoder's epilogues alone)
     fit_dir = os.path.join(WORK, "fit_direct")
     shutil.rmtree(fit_dir, ignore_errors=True)
     say(f"  DragEngine.fit_real_shape_direct of the first generated mesh ({len(first_mesh.triangles)} "
         f"triangles), published FitConfig: {cfg.fit.opt_epochs} epochs x "
         f"{cfg.fit.points_size // cfg.fit.batch_points} batches of {cfg.fit.batch_points} points")
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     engine.fit_real_shape_direct(mesh=first_mesh, path=fit_dir, seed=0)
     wall = time.perf_counter() - t0
-    say(f"  launches in direct fit: {dict(hk.LAUNCHES)} for {counter.n} UNet forwards (want none)")
-    if counter.n or any(hk.LAUNCHES.values()):
-        fail("direct fit: the decoder-only fit ran the UNet or launched a kernel")
+    if counter.n:
+        fail(f"direct fit: the decoder-only fit ran {counter.n} UNet forwards")
+    check_launches(hk, "direct fit (the decoder's epilogues alone)", zero_counts(hk))
     losses, walls = engine.last_fit_losses, engine.last_phase_walls
     tri = np.load(os.path.join(fit_dir, "tri_feat_opt.npy"))
     # random decoder weights may put the fitted field on one side of the
@@ -1452,15 +1676,16 @@ def serving_runs(hk, counter, per_fwd, totals, engine, first_mesh, card) -> dict
     gen = torch.Generator(device="cuda").manual_seed(7)
     noises = torch.randn((w_time, 2, 1) + cfg.latent_shape, generator=gen, device="cuda")
     scale, cof = cfg.edit.grad_scale, cfg.edit.mask_weight
-    again = kernel_calls_recomputed(cfg.unet, cfg.edit.feat_layer)
+    again = calls_recomputed(cfg.unet, cfg.edit.feat_layer)
     say(f"  remat: each drag step's backward recomputes {again[0]} GroupNorm-SiLU and {again[1]} "
-        f"attention calls (input and middle blocks, output blocks 0..{cfg.edit.feat_layer})")
+        f"attention calls and {again[2]} FiLM epilogues (input and middle blocks, output blocks "
+        f"0..{cfg.edit.feat_layer})")
     batched = {}
     for label, remat in (("plain", False), ("remat first", True), ("remat", True)):
         fn = lambda remat=remat: drag_edit_batched(  # noqa: E731
             beng.sched, beng.model_fn(feat=True, remat=remat), inv["w"], inv["features"], problems,
             w_time=w_time, scale=scale, cof=cof, noises=noises)
-        kw = dict(again=again if remat else (0, 0), steps=w_time, back=drag_back)
+        kw = dict(again=again if remat else (0, 0, 0), steps=w_time, back=drag_back)
         edited, wall, peak = counted(hk, counter, per_fwd, totals, f"batched drag ({label})", fn, w_time,
                                      **kw)
         batched[label] = edited
@@ -1606,14 +1831,16 @@ def serve_session(hk, counter, per_fwd, totals, cfg, card) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def launches_per_forward(hk, ucfg) -> dict:
+def launches_per_forward(hk, ucfg, cut_min=None) -> dict:
     """Each kernel's launches in one forward of a UNet of config ``ucfg``:
-    two GroupNorm launches per GroupNorm-SiLU call, and each attention call
-    on the kernel ``attention_route`` picks for its head dim."""
+    two GroupNorm launches per GroupNorm-SiLU call, each attention call on
+    the kernel ``attention_route`` picks for its head dim, and the bias
+    epilogues (``epilogues``; ``cut_min`` for a cut UNet)."""
     from ishapediting_tpu_torch.models.unet import attention_head_dims, kernel_calls_per_forward
 
     gn, _ = kernel_calls_per_forward(ucfg)
-    want = dict(zero_counts(hk), gn_stats=gn, gn_norm=gn)
+    plain, fused = epilogues(ucfg, cut_min=cut_min)
+    want = dict(zero_counts(hk), gn_stats=gn, gn_norm=gn, bias_add=plain, bias_residual=fused)
     for ch in attention_head_dims(ucfg):
         want[hk.attention_route(ucfg.torch_compute_dtype, ch)] += 1
     return want
@@ -1625,15 +1852,15 @@ def counted_routes(hk, counter, totals, phase, fn, forwards, per, extra=None):
     launching ``per`` (a LAUNCHES-keyed dict), plus ``extra`` (the backward
     passes' launches, ``backward_launches``). Returns (fn's result, wall s)."""
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     out = fn()
     sync()
     wall = time.perf_counter() - t0
     got = dict(hk.LAUNCHES)
-    want = {k: v * forwards + (extra or {}).get(k, 0) for k, v in per.items()}
-    say(f"  launches in {phase}: {got} for {counter.n} UNet forwards (want {want})")
+    want = with_decoder({k: v * forwards + (extra or {}).get(k, 0) for k, v in per.items()})
+    say(f"  launches in {phase}: {got} for {counter.n} UNet forwards and {DECODER.n} decoder calls (want {want})")
     if counter.n != forwards or got != want:
         fail(f"{phase}: {counter.n} forwards and launches {got}, expected {forwards} and {want}")
     for k, v in got.items():
@@ -1663,7 +1890,8 @@ def heads_by_count_runs(hk, counter, totals) -> dict:
     cfg = dataclasses.replace(base.with_steps(20), edit=dataclasses.replace(
         base.edit, w_time=10, feat_layer=8, shape_resolution=64))
     per = launches_per_forward(hk, cfg.unet)
-    expected = dict(zero_counts(hk), gn_stats=71, gn_norm=71, attention=5, attention_generic=11)
+    expected = dict(zero_counts(hk), gn_stats=71, gn_norm=71, attention=5, attention_generic=11, bias_add=90,
+                    bias_residual=51)
     say(f"  heads-by-count UNet (num_heads 4, num_head_channels -1): per forward {per}")
     if per != expected:
         fail(f"heads-by-count launches per forward {per} are not {expected}")
@@ -1686,8 +1914,9 @@ def heads_by_count_runs(hk, counter, totals) -> dict:
         fail("heads-by-count update_latent_params: latent or guidance cache not as expected")
     out["update_latent_params_s"] = wall
     mesh, wall = counted_routes(hk, counter, totals, "heads-by-count drag (2 guided steps)",
-                                lambda: engine.drag_edit(*HANDLE, seed=0, chunk=1, edit_steps=2),
-                                2, per, backward_launches(hk, cfg.unet, cfg.edit.feat_layer, steps=2))
+                                lambda: engine.drag_edit(*HANDLE, seed=0, chunk=1, edit_steps=2), 2,
+                                dict(per, bias_add=film_epilogues(cfg.unet), bias_residual=0),  # under autograd
+                                backward_launches(hk, cfg.unet, cfg.edit.feat_layer, steps=2))
     losses = engine.last_drag_losses
     if not (np.isfinite(engine.edited_latent).all() and np.isfinite(losses["motion"]).all()
             and len(losses["motion"]) == 2):
@@ -1710,10 +1939,10 @@ def train_step_launches(hk, ucfg, remat: bool = True) -> dict:
     ``ucfg``: the forward's and, under remat, every block's again (the loss
     reaches the output, and the output head is not checkpointed); the
     backward kernels once for every GroupNorm-SiLU and attention call of the
-    forward."""
+    forward. No bias epilogue: the forward wants the gradient."""
     from ishapediting_tpu_torch.models.unet import attention_head_dims, kernel_calls_recomputed
 
-    want = launches_per_forward(hk, ucfg)
+    want = dict(launches_per_forward(hk, ucfg), bias_add=0, bias_residual=0)
     for k, v in backward_launches(hk, ucfg).items():
         want[k] += v
     if remat:
@@ -1727,9 +1956,10 @@ def train_step_launches(hk, ucfg, remat: bool = True) -> dict:
 
 def check_launches(hk, phase, want, totals=None) -> None:
     """The launch counters against ``want``; the run's launches are added to
-    ``totals`` unless it is None (a comparison with the plain versions)."""
-    got = dict(hk.LAUNCHES)
-    say(f"  launches in {phase}: {got} (want {want})")
+    ``totals`` unless it is None (a comparison with the plain versions).
+    The decoder's calls add their plain epilogues (``with_decoder``)."""
+    got, want = dict(hk.LAUNCHES), with_decoder(want)
+    say(f"  launches in {phase}: {got} with {DECODER.n} decoder calls (want {want})")
     if got != want:
         fail(f"{phase}: launch counts {got} are not {want}")
     if totals is not None:
@@ -1784,7 +2014,7 @@ def train_card_check(hk, cfg, tol, what, device="cuda") -> dict:
         dev, dt = ("cpu", mcfg.torch_compute_dtype) if name == "ref" else (name, torch.float32)
         state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
         sync()
-        hk.reset_launch_counts()
+        reset(hk)
         metrics[name] = make_train_step(mcfg, sched)(
             state, batch.to(dev, dt), t=t.to(dev), noise=noise.to(dev, dt),
             dropout_masks=[None if m is None else m.to(dev) for m in masks])
@@ -1831,7 +2061,7 @@ def remat_check(hk, cfg, device="cuda") -> dict:
         model = copy.deepcopy(base).to(device)
         state = init_train_state(model, make_optimizer(model.parameters(), grad_clip=0.0))
         sync()
-        hk.reset_launch_counts()
+        reset(hk)
         make_train_step(cfg, sched, remat=remat)(state, batch.to(device),
                                                  torch.Generator(device=device).manual_seed(seed))
         sync()
@@ -1866,14 +2096,14 @@ def sphere_decoder(hk, device="cuda") -> tuple:
     batches = MultiOccupancyDataset([OccupancyDataset(pts, occ)]).batches(2048, seed=0)
     steps = 150
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         dec, bank = train_decoder(batches, num_objs=1, steps=steps, resolution=128, channels=32,
                                   mapping=64, hidden=128, lr=3e-3, log_every=1000, device=device)
     sync()
     wall = time.perf_counter() - t0
-    check_launches(hk, "decoder training", {k: 0 for k in hk.LAUNCHES})
+    check_launches(hk, "decoder training", zero_counts(hk))
     test = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
     with torch.no_grad():
         pred = (decode_points(dec, bank[0], torch.from_numpy(test).to(device))[:, 0] > 0).cpu().numpy()
@@ -1919,7 +2149,7 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
     from ishapediting_tpu_torch.core.schedule import make_schedule
     from ishapediting_tpu_torch.edit.engine import DragEngine
     from ishapediting_tpu_torch.io.checkpoint import load_train_state, whole_state
-    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.models.unet import UNetModel
     from ishapediting_tpu_torch.train.loop import latest_checkpoint
     from ishapediting_tpu_torch.train.trainer import init_train_state, make_optimizer
 
@@ -1941,7 +2171,7 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
         say(f"  python -m ishapediting_tpu_torch.cli.train {' '.join(argv + extra)}")
         buf = io.StringIO()
         sync()
-        hk.reset_launch_counts()
+        reset(hk)
         counter.n, counter.starts = 0, []
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -2031,7 +2261,7 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
     sched10 = make_schedule(1000, "linear", "ddim10").to(device)
     x_T = torch.randn((2,) + tuple(chairs.latent_shape), generator=torch.Generator(device=device).manual_seed(7),
                       device=device)
-    per_fwd = kernel_calls_per_forward(cfg.unet)
+    per_fwd = calls_per_forward(cfg.unet)
     ddim, eps = {}, {}
     t999 = torch.full((2,), 999, dtype=torch.long, device=device)
     for label, eng in (("served", engine), ("in-memory", memory_engine)):
@@ -2050,7 +2280,7 @@ def chairs_training(hk, counter, totals, decoder_pt, preset_name="chairs", devic
     if not same:
         fail("the served export's DDIM-10 or forward differs from the in-memory EMA UNet's")
     del memory_engine, in_memory, ddim, eps
-    lat, wall, _ = counted(hk, counter, kernel_calls_per_forward(cfg.unet), totals,
+    lat, wall, _ = counted(hk, counter, calls_per_forward(cfg.unet), totals,
                            "served update_latent_params", lambda: engine.update_latent_params(seed=0), 20)
     check_mesh("served update_latent_params", engine.mesh0, engine.last_mesh_walls)
     if lat.shape != (1,) + cfg.latent_shape or not np.isfinite(lat).all():
@@ -2094,7 +2324,7 @@ def overfit_check(hk, counter, totals, device="cuda") -> dict:
 
     steps = 30
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
@@ -2351,7 +2581,6 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.core.solver_eval import solver_mesh_sweep
     from ishapediting_tpu_torch.edit.engine import DragEngine
-    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
     from ishapediting_tpu_torch.utils import threefry
 
     cfg = engine.config
@@ -2401,7 +2630,7 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     say(f"  python -m ishapediting_tpu_torch.cli.eval {' '.join(argv)}")
     buf = io.StringIO()
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -2411,7 +2640,7 @@ def sweep_runs(hk, counter, totals, engine, per_fwd, device="cuda") -> dict:
     forwards = 100 + 130 * tiny["seeds"]  # the reference chain, then per seed 100 + 10 + 10 + 5 + 5
     if counter.n != forwards:
         fail(f"cli.eval --solver_sweep tiny: {counter.n} UNet forwards, expected {forwards}")
-    check_counts(hk, "cli.eval --solver_sweep (tiny)", forwards, kernel_calls_per_forward(preset("tiny").unet),
+    check_counts(hk, "cli.eval --solver_sweep (tiny)", forwards, calls_per_forward(preset("tiny").unet),
                  totals, attn_kernel="attention_generic")
     say(f"  cli.eval --solver_sweep (tiny, on the card): {json.dumps(tiny)}, wall {wall:.1f} s")
     if tiny["ref"] != "ddim100-dense" or not {"ddpm100", "ddim10", "dpm10", "ddim5", "dpm5"} <= tiny.keys():
@@ -2547,7 +2776,6 @@ def host_module_runs(hk, counter, totals, mp=None, device="cuda", preset_name="c
     here (random weights from the seed 0, the same as phase 4's)."""
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.edit.engine import DragEngine
-    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     if mp is not None:
         engine, per_fwd = mp["engine"], mp["per_fwd"]
@@ -2555,7 +2783,7 @@ def host_module_runs(hk, counter, totals, mp=None, device="cuda", preset_name="c
         chairs = preset(preset_name, 20)
         chairs = dataclasses.replace(chairs, edit=dataclasses.replace(
             chairs.edit, w_time=10, feat_layer=chairs.edit.feat_layer if preset_name == "tiny" else 8))
-        engine, per_fwd = DragEngine(chairs, seed=0, device=device), kernel_calls_per_forward(chairs.unet)
+        engine, per_fwd = DragEngine(chairs, seed=0, device=device), calls_per_forward(chairs.unet)
     t_all = time.perf_counter()
     d, dec_pt, planes, pair, edit_log, source = phase8_inputs(engine)
     say(f"  inputs: {source} triplanes {[os.path.relpath(p, ROOT) for p in planes]}, meshes and EditLog")
@@ -2699,7 +2927,7 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     from ishapediting_tpu_torch.core.schedule import make_schedule
     from ishapediting_tpu_torch.edit.engine import DragEngine
     from ishapediting_tpu_torch.edit.fit import latent_to_planes
-    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.models.unet import UNetModel
     from ishapediting_tpu_torch.ops import hopper_kernels as hk
     from ishapediting_tpu_torch.ops.triplane import decode_grid
     from ishapediting_tpu_torch.parallel import mesh as pmesh
@@ -2727,10 +2955,10 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     argv = ["--model_dir", inputs["model_dir"], "--preset", preset_name, "--use_ddim", "--num_steps", "10", "--num_samples", "2",
             "--batch_size", "2", "--seed", "0", "--sharded_decode", "--shape_resolution", str(grid_res),
             "--save_dir", out, "--device", device, "--dist_backend", backend]
-    per_fwd = kernel_calls_per_forward(preset(preset_name).unet)
+    per_fwd = calls_per_forward(preset(preset_name).unet)
     buf = io.StringIO()
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2795,7 +3023,7 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
     res["train"] = []
     for i, st in enumerate(inputs["steps"]):
         sync()
-        hk.reset_launch_counts()
+        reset(hk)
         t0 = time.perf_counter()
         metrics = step(state, st["batch"].to(dev), t=st["t"].to(dev), noise=st["noise"].to(dev),
                        dropout_masks=[None if m is None else m.to(dev) for m in st["masks"]])
@@ -2808,7 +3036,7 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
         tensors[f"params_{i + 1}"] = flat_params(model)
     tensors["ema"] = torch.cat([v.reshape(-1) for v in state.ema_params.values()]).cpu()
     before = flat_params(model)
-    hk.reset_launch_counts()
+    reset(hk)
     metrics = step(state, inputs["nan_batch"].to(dev), t=inputs["steps"][1]["t"].to(dev),
                    noise=inputs["steps"][1]["noise"].to(dev),
                    dropout_masks=[None if m is None else m.to(dev) for m in inputs["steps"][1]["masks"]])
@@ -2825,13 +3053,13 @@ def rank_worker(work: str, backend: str, device="cuda", preset_name="chairs", gr
 
     # (d) the tiny preset: batched drag and morph over the ranks
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     tensors.update(tiny_edit_runs(inputs, dev, mesh))
     sync()
     res["tiny_s"] = time.perf_counter() - t0
-    tiny_per = kernel_calls_per_forward(preset("tiny").unet)
+    tiny_per = calls_per_forward(preset("tiny").unet)
     if counter.n != tiny_edit_forwards():
         fail(f"rank {rank}: the tiny runs made {counter.n} UNet forwards, expected {tiny_edit_forwards()}")
     tiny = preset("tiny")
@@ -3114,7 +3342,7 @@ def signal_reference(totals, device="cuda", train=True) -> dict:
         from ishapediting_tpu_torch.ops import hopper_kernels as hk
 
         ucfg = dataclasses.replace(chairs.unet, dropout=TRAIN_TP_DROPOUT)
-        hk.reset_launch_counts()
+        reset(hk)
         state, tr = train_steps(model, ucfg, device)
         check_launches(hk, "one-rank reference train steps (2)", {k: 2 * v for k, v in train_step_launches(
             hk, ucfg).items()}, totals)
@@ -3161,21 +3389,30 @@ def mini_tp_runs(model, inputs, dev, remat) -> dict:
     return dict(grad=grad, edited=torch.from_numpy(np.asarray(eng.edited_latent)))
 
 
-def mini_tp_launches(remat) -> dict:
+def mini_tp_launches(remat, cut_min=None) -> dict:
     """Launches of ``mini_tp_runs``: ``MINI_TP_STEPS`` + 3 forwards (the
     gradient's, the sampling steps, 2 drag steps); the gradient's backward
     runs every node (its loss reaches the output) and each drag step's those
     its tap reaches; under remat the gradient's backward recomputes every
-    block and each drag step's those its tap reaches."""
+    block and each drag step's those its tap reaches. The sampling steps
+    want no gradient and launch every bias epilogue (``epilogues``;
+    ``cut_min`` for the cut miniature); the other three forwards their
+    time-embedding path's, and under remat the recomputed FiLM projections
+    (``film_epilogues``)."""
     from ishapediting_tpu_torch.config import UNetConfig
     from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward, kernel_calls_recomputed
 
     cfg = UNetConfig(**MINI_TP)
-    gn, attn = ((MINI_TP_STEPS + 3) * c for c in kernel_calls_per_forward(cfg))
+    forwards = MINI_TP_STEPS + 3
+    gn, attn = (forwards * c for c in kernel_calls_per_forward(cfg))
+    plain, fused = (MINI_TP_STEPS * c for c in epilogues(cfg, cut_min=cut_min))
+    plain += 3 * film_epilogues(cfg)
     if remat:
         head, tap = kernel_calls_recomputed(cfg, -1, head=True), kernel_calls_recomputed(cfg, MINI_TP_FEAT)
         gn, attn = gn + head[0] + 2 * tap[0], attn + head[1] + 2 * tap[1]
-    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": attn}
+        plain += film_epilogues(cfg, "head") + 2 * film_epilogues(cfg, MINI_TP_FEAT)
+    want = {"gn_stats": gn, "gn_norm": gn, "attention": 0, "attention_generic": attn, "bias_add": plain,
+            "bias_residual": fused}
     grad, drag = backward_nodes(cfg), backward_nodes(cfg, MINI_TP_FEAT)
     gn_b, attn_b = grad[0] + 2 * drag[0], grad[1] + 2 * drag[1]
     return dict(want, gn_bwd_reduce=gn_b, gn_bwd_apply=gn_b, attn_bwd_dq=attn_b, attn_bwd_dkdv=attn_b)
@@ -3204,7 +3441,7 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     from ishapediting_tpu_torch.config import preset
     from ishapediting_tpu_torch.edit.engine import DragEngine
     from ishapediting_tpu_torch.edit.fit import latent_to_planes
-    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.models.unet import UNetModel
     from ishapediting_tpu_torch.ops import hopper_kernels as hk
     from ishapediting_tpu_torch.ops.triplane import decode_grid
     from ishapediting_tpu_torch.parallel import mesh as pmesh
@@ -3229,7 +3466,8 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
 
     # (a) the chairs UNet built on the CPU (phase 4's weights, signal in its zero modules), cut; (e) trains it
     chairs = preset(preset_name, 10, use_ddim=True)
-    per_fwd = kernel_calls_per_forward(chairs.unet)
+    per_fwd = calls_per_forward(chairs.unet)
+    per_cut = calls_per_forward(chairs.unet, cut_min=ptensor.MIN_CUT_FEATURES)
     t0 = time.perf_counter()
     model = signal_chairs(dev, preset_name, dropout=TRAIN_TP_DROPOUT)
     res["whole_bytes"] = param_bytes(model)
@@ -3246,16 +3484,16 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     engine = DragEngine(chairs, unet=model, seed=0, device=dev)
     x, tt = inputs["x"].to(dev), inputs["t"].to(dev)
     with torch.no_grad():
-        (out, _), res["first_forward_s"], peak1 = counted(hk, counter, per_fwd, totals,
+        (out, _), res["first_forward_s"], peak1 = counted(hk, counter, per_cut, totals,
                                                           f"rank {rank} cut forward (first)", lambda: model(x, tt), 1)
         ptensor.reset_gather_counts()
-        _, res["forward_s"], peak2 = counted(hk, counter, per_fwd, totals, f"rank {rank} cut forward",
+        _, res["forward_s"], peak2 = counted(hk, counter, per_cut, totals, f"rank {rank} cut forward",
                                              lambda: model(x, tt), 1)
     res["gathers"], res["gather_s"], res["gather_bytes"] = (ptensor.GATHERS[k] for k in ("calls", "s", "bytes"))
     tensors["forward"] = out.float().cpu()
     kw = dict(num_samples=2, batch_size=2, latent_shape=chairs.latent_shape, seed=0, sampler="ddim",
               clip_denoised=chairs.diffusion.clip_denoised, mesh=mesh)
-    samples, res["ddim_s"], peak3 = counted(hk, counter, per_fwd, totals, f"rank {rank} DDIM-10 (model axis)",
+    samples, res["ddim_s"], peak3 = counted(hk, counter, per_cut, totals, f"rank {rank} DDIM-10 (model axis)",
                                             lambda: sample_batches(engine.sched, engine.model_fn(), **kw), 10)
     tensors["ddim"] = torch.from_numpy(samples)
     res["first_peak_gib"], res["peak_gib"] = peak1, max(peak2, peak3)
@@ -3293,13 +3531,13 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
     for remat in (False, True):
         for label, m in (("cut", cut), ("whole", whole)):
             sync()
-            hk.reset_launch_counts()
+            reset(hk)
             t0 = time.perf_counter()
             tensors[f"mini_{label}_remat{int(remat)}"] = mini_tp_runs(m, inputs, dev, remat)
             sync()
             res[f"mini_{label}_remat{int(remat)}_s"] = time.perf_counter() - t0
             check_launches(hk, f"rank {rank} miniature gradient + drag ({label}, remat {remat})",
-                           mini_tp_launches(remat), totals)
+                           mini_tp_launches(remat, ptensor.MIN_CUT_FEATURES if label == "cut" else None), totals)
     tag("fp32 miniature, guidance gradient + 2-step drag, cut / whole: "
         + ", ".join(f"remat {r} {res[f'mini_cut_remat{r}_s']:.2f} / {res[f'mini_whole_remat{r}_s']:.2f} s"
                     for r in (0, 1)))
@@ -3307,7 +3545,7 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
 
     # (d) cli.serve over the ranks, on the requests piped to torchrun's stdin
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     counter.n = 0
     t0 = time.perf_counter()
     serve.main(["--dist_backend", backend, "--device", device])
@@ -3329,7 +3567,7 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
 
     ucfg = dataclasses.replace(chairs.unet, dropout=TRAIN_TP_DROPOUT)
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     ptensor.reset_gather_counts()
     state, tr = train_steps(model, ucfg, dev, mesh)
     check_launches(hk, f"rank {rank} cut train steps (2)", {k: 2 * v for k, v in train_step_launches(
@@ -3352,7 +3590,7 @@ def tp_worker(work: str, backend: str, device="cuda", preset_name="chairs", grid
         st = init_train_state(m, make_optimizer(m.parameters(), 1e-4, grad_clip=1.0))
         x, draws = train_draws(mcfg, 0, dev)
         sync()
-        hk.reset_launch_counts()
+        reset(hk)
         res[f"mini_train_{label}"] = make_train_step(mcfg, sched, mesh=mesh if label == "cut" else None)(
             st, x, **draws)
         check_launches(hk, f"rank {rank} miniature train step ({label})", train_step_launches(hk, mcfg), totals)
@@ -3593,7 +3831,7 @@ def orbax_phase(hk, counter, totals, card) -> dict:
     from ishapediting_tpu_torch.core.schedule import make_schedule
     from ishapediting_tpu_torch.edit.engine import DragEngine
     from ishapediting_tpu_torch.io.orbax import load_params
-    from ishapediting_tpu_torch.models.unet import UNetModel, kernel_calls_per_forward
+    from ishapediting_tpu_torch.models.unet import UNetModel
     from ishapediting_tpu_torch.train.loop import train
 
     out = {}
@@ -3623,7 +3861,7 @@ def orbax_phase(hk, counter, totals, card) -> dict:
 
     npz = np.load(os.path.join(ORBAX_ASSETS, "jax_ddim.npz"))
     x_T = torch.from_numpy(npz["x_T"]).cuda()
-    per_fwd = kernel_calls_per_forward(cfg.unet)
+    per_fwd = calls_per_forward(cfg.unet)
     with torch.no_grad():
         lat, out["ddim_s"], _ = counted(
             hk, counter, per_fwd, totals, "orbax model DDIM-10 at batch 2",
@@ -3665,7 +3903,7 @@ def orbax_phase(hk, counter, totals, card) -> dict:
     batches = (np.clip(rng.standard_normal((2,) + cfg.latent_shape), -1, 1).astype(np.float32) for _ in range(9))
     model = UNetModel(cfg.unet).cuda()
     sync()
-    hk.reset_launch_counts()
+    reset(hk)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         state = train(cfg.unet, make_schedule(cfg.diffusion.base_steps, cfg.diffusion.noise_schedule, ""), model,
@@ -3687,14 +3925,13 @@ def card_phase(hk, dev, counter, totals) -> dict:
     """Phase 3: the whole UNet on the card against the CPU, the tiny
     engine, and the edit gate."""
     from ishapediting_tpu_torch.config import UNetConfig, preset
-    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     say("[3] UNet on the card (kernels) against the CPU (plain versions), small input; "
         "the edit gate")
     unet_card_check(hk, dev, UNetConfig(**MINI_BF16, dropout=0.0), 3e-2, "bf16 torso, head dim 64")
     unet_card_check(hk, dev, preset("tiny").unet, 1e-4, "tiny preset: fp32 torso, head dim 8")
     tiny = preset("tiny")
-    tiny_fwd = kernel_calls_per_forward(tiny.unet)
+    tiny_fwd = calls_per_forward(tiny.unet)
     say(f"  tiny per UNet forward: {tiny_fwd[0]} GroupNorm-SiLU calls, {tiny_fwd[1]} attention "
         f"calls ({hk.attention_route(tiny.unet.torch_compute_dtype, tiny.unet.num_head_channels)})")
     run_engine(hk, counter, tiny_fwd, totals, tiny, "preset('tiny')", "tiny engine",
@@ -3705,13 +3942,12 @@ def card_phase(hk, dev, counter, totals) -> dict:
 def main_path(hk, counter, totals, keep=False) -> dict:
     """Phase 4: the main path at the published chairs width."""
     from ishapediting_tpu_torch.config import preset
-    from ishapediting_tpu_torch.models.unet import kernel_calls_per_forward
 
     say("[4] main path, published chairs config at full width, random weights "
         "(step counts cut: 10/10/20-step sampling, w_time 10, fit 3 steps, cli.edit 200 "
         "generation + 10 guided steps; widths and the 256^3 grid as published)")
     chairs = preset("chairs", 20)
-    per_fwd = kernel_calls_per_forward(chairs.unet)
+    per_fwd = calls_per_forward(chairs.unet)
     say(f"  per UNet forward: {per_fwd[0]} GroupNorm-SiLU calls, {per_fwd[1]} attention calls")
     ddim_s, _ = run_cli(hk, counter, per_fwd, totals, "--use_ddim", "ddim", keep=keep)
     run_cli(hk, counter, per_fwd, totals, "--use_dpm", "dpm", decode=False)
@@ -3741,6 +3977,11 @@ def main() -> None:
     parser.add_argument("--dist_backend", type=str, default="gloo",
                         help="phases 9 and 10's process-group backend (ranks sharing one card need gloo)")
     args = parser.parse_args()
+    if not os.path.isdir(os.path.join(ROOT, "ishapediting_tpu_torch")):
+        fail("the port's package ishapediting_tpu_torch/ is not beside this script")
+    sys.path.insert(0, ROOT)
+    global DECODER
+    DECODER = DecoderCounter()
     if args.rank_worker:
         rank_worker(args.rank_worker, args.dist_backend)
         return
@@ -3752,9 +3993,6 @@ def main() -> None:
         parser.error("phase 5 runs on phase 4's engine")
     watchdog()
     t_start = time.perf_counter()
-    if not os.path.isdir(os.path.join(ROOT, "ishapediting_tpu_torch")):
-        fail("the port's package ishapediting_tpu_torch/ is not beside this script")
-    sys.path.insert(0, ROOT)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one CUDA card")
     from ishapediting_tpu_torch import native
@@ -3801,6 +4039,7 @@ def main() -> None:
         begin("2")
         report = kernel_checks(hk, dev)
         backward_checks(hk, dev, report)
+        epilogue_checks(hk, dev, report)
     counter = ForwardCounter(UNetModel)
     totals: dict = {}
     if 3 in phases:

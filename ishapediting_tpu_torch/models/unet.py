@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,11 +45,15 @@ from torch.utils.checkpoint import checkpoint
 from ishapediting_tpu_torch.config import UNetConfig
 from ishapediting_tpu_torch.ops.attention import qkv_attention
 from ishapediting_tpu_torch.ops.nn import (
+    add_bias,
+    add_bias_residual,
     avg_pool_2x,
     conv2d,
+    conv2d_product,
     group_norm,
     group_norm_silu,
     linear,
+    linear_product,
     nearest_upsample_2x,
     silu,
     timestep_embedding,
@@ -196,6 +199,28 @@ def kernel_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
     return gn + 1, attn
 
 
+def _epilogues(layer: Layer) -> Tuple[int, int]:
+    """(plain, fused) bias epilogues of one layer's forward. Fused: a
+    ResBlock's last conv (with the skip conv's bias where there is one) and
+    an attention block's projection, each with the residual add. Plain:
+    every other convolution and dense layer, i.e. a ResBlock's first conv
+    and FiLM projection, an attention block's qkv, the input conv and each
+    resample conv."""
+    if layer.kind == "res":
+        return 2, 1
+    if layer.kind == "attn":
+        return 1, 1
+    return int(layer.use_conv), 0  # conv, downsample, upsample
+
+
+def epilogue_calls_per_forward(cfg: UNetConfig) -> Tuple[int, int]:
+    """(plain, fused) bias epilogues of one forward of an uncut UNet: those
+    of every layer (``_epilogues``), and three plain ones outside the
+    blocks (the time MLP's two dense layers and the output conv)."""
+    counts = [_epilogues(l) for l in _layers(build_layout(cfg))]
+    return 3 + sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
 def dropout_sites(cfg: UNetConfig, batch: int) -> List[Optional[Tuple[int, int, int, int]]]:
     """The keep mask's shape at each dropout site of a batch-``batch``
     forward, in the JAX package's ``drop_rngs[site]`` order: every layer of
@@ -240,22 +265,28 @@ class GroupNorm32(nn.Module):
 
 
 def dense(mod: nn.Module, x: torch.Tensor, **conv_kw) -> torch.Tensor:
-    """``mod``'s product on ``x``: ``conv2d`` (NHWC) for an ``nn.Conv2d``,
-    ``linear`` for an ``nn.Linear`` or an attention block's 1x1
-    ``nn.Conv1d``. A layer that ``parallel/tensor.py::shard_params_tp`` cut
-    computes this rank's slice of the output features and gathers the
-    slices over the model axis; any other runs the product alone."""
-    w = mod.weight
-    if isinstance(mod, nn.Conv2d):
-        product = functools.partial(conv2d, **conv_kw)
-    else:
-        product, w = linear, (w[:, :, 0] if w.dim() == 3 else w)
+    """``mod``'s output on ``x``, its bias added: ``conv2d`` (NHWC) for an
+    ``nn.Conv2d``, ``linear`` for an ``nn.Linear`` or an attention block's
+    1x1 ``nn.Conv1d`` (see ``dense_product``)."""
+    return add_bias(*dense_product(mod, x, **conv_kw))
+
+
+def dense_product(mod: nn.Module, x: torch.Tensor, **conv_kw):
+    """(``mod``'s raw product on ``x``, its bias as stored), for a caller
+    that adds the bias in a fused epilogue (``add_bias_residual``). A layer
+    that ``parallel/tensor.py::shard_params_tp`` cut computes this rank's
+    slice of the output features, its bias added, and gathers the slices
+    over the model axis: it returns the whole output and None."""
+    w, conv = mod.weight, isinstance(mod, nn.Conv2d)
+    if not conv and w.dim() == 3:
+        w = w[:, :, 0]
     axis = getattr(mod, "model_axis", None)
     if axis is None:
-        return product(x, w, mod.bias)
+        return (conv2d_product(x, w, **conv_kw) if conv else linear_product(x, w)), mod.bias
     from ishapediting_tpu_torch.parallel.tensor import copy_to_model, gather_from_model
 
-    return gather_from_model(product(copy_to_model(x, axis), w, mod.bias), axis)
+    x = copy_to_model(x, axis)
+    return gather_from_model(conv2d(x, w, mod.bias, **conv_kw) if conv else linear(x, w, mod.bias), axis), None
 
 
 def embed(mod: nn.Embedding, y: torch.Tensor) -> torch.Tensor:
@@ -310,11 +341,11 @@ class ResBlock(nn.Module):
             hh = _gn_silu(self.out_layers[0], hh + emb_out[:, None, None, :])
         if keep is not None:  # the reference's nn.Dropout at out_layers[2]
             hh = torch.where(keep, hh / torch.tensor(1.0 - p, dtype=hh.dtype), 0.0)
-        hh = dense(self.out_layers[3], hh, padding=1)
+        hh, b = dense_product(self.out_layers[3], hh, padding=1)
+        xb = None
         if self.layer.in_ch != self.layer.out_ch:
-            x = dense(self.skip_connection, x)
-        with span("residual"):
-            return x + hh
+            x, xb = dense_product(self.skip_connection, x)
+        return add_bias_residual(hh, b, x, xb)  # x [+ skip bias] + (hh + b), one epilogue
 
 
 class AttentionBlock(nn.Module):
@@ -334,9 +365,8 @@ class AttentionBlock(nn.Module):
         with span("group_norm"):
             normed = self.norm(h).reshape(n, hh * ww, c)
         att = qkv_attention(dense(self.qkv, normed), self.heads)
-        out = dense(self.proj_out, att)
-        with span("residual"):
-            return h + out.reshape(n, hh, ww, c)
+        out, b = dense_product(self.proj_out, att)
+        return add_bias_residual(out.reshape(n, hh, ww, c), b, h)  # h + (out + b), one epilogue
 
 
 class Downsample(nn.Module):

@@ -1,8 +1,8 @@
-"""Hand-written Hopper kernels for the UNet's two fused hot ops, forward and
+"""Hand-written Hopper kernels for the UNet's fused hot ops, forward and
 backward, their plain PyTorch versions, ``torch.autograd.Function`` wrappers
 and launch counters.
 
-Two ops, eight kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
+Three ops, ten kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
 
 - ``groupnorm_silu`` (``csrc/groupnorm_silu.cu``, two launches: ``gn_stats``
   and ``gn_norm``): GroupNorm with fp32 statistics + optional FiLM
@@ -32,18 +32,34 @@ Two ops, eight kernels (CUDA C++ for ``sm_90a``, sources in ``csrc/``):
   the forward has: bf16 at ch in {32, 64, 128} on the TMA + ``wgmma``
   kernels (``csrc/attention_bwd_hopper.cu``), fp32 and bf16 at any other
   ch on the generic ``mma.sync`` kernels (``csrc/attention_bwd.cu``).
+- ``bias_epilogue`` (``csrc/bias_epilogue.cu``, one launch): every
+  convolution's and dense layer's bias add, ``rnd(y + b)``
+  (``bias_add_kernel``, counted as ``bias_add``), and the fused form
+  that a ResBlock's last conv or an attention block's projection takes,
+  ``rnd(res + rnd(y + b))``, with ``rnd(res + rb)`` first where the
+  residual is a skip conv's raw product (``bias_residual_kernel``,
+  counted as ``bias_residual``): the biases read as the layer stores them
+  (fp32) and rounded to the activation dtype, each add one fp32 add
+  rounded to the dtype, bit-equal to eager PyTorch's casts and adds.
+  16-byte vectors where C and the pointers allow, narrower where not. A
+  call that wants no gradient writes into the product's buffer; under
+  autograd the plain composition runs, with autograd's own backward. No
+  TPU kernel: the JAX package leaves these adds to XLA.
 
-Dispatch is by device and nothing else: a CPU tensor takes the plain
-version (the backward: autograd through the plain composition, as the JAX
-package's VJPs); a CUDA tensor launches the kernel or raises. The kernels
-build at first use with nvcc into ``build/kernels/`` (one ``nvcc -c`` per
-source, started together, then one link) and bind through ctypes.
+Dispatch is by device: a CPU tensor takes the plain version (the
+backward: autograd through the plain composition, as the JAX package's
+VJPs); a CUDA tensor launches the kernel or raises. The bias epilogue alone
+also asks whether a gradient is wanted (``needs_grad``): under autograd,
+and on any device but a card, it is the plain composition. The
+kernels build at first use with nvcc into ``build/kernels/`` (one ``nvcc
+-c`` per source, started together, then one link) and bind through ctypes.
 ``LAUNCHES`` counts each kernel launch, so that a run can show it went
 through the kernels; ``record_launches`` also lists each launch's shape and
 the bytes and operations its bound counts. Launch shapes are computed here
 (``gn_stats_geometry``, ``gn_norm_geometry``, ``gn_bwd_geometry``,
 ``attention_geometry``, ``attention_generic_geometry``,
-``attention_bwd_geometry``) and passed to the C entry points.
+``attention_bwd_geometry``, ``bias_epilogue_geometry``) and passed to the C
+entry points.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ import contextlib
 import ctypes
 import fcntl
 import functools
+import operator
 import os
 import shutil
 import subprocess
@@ -68,12 +85,13 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 SOURCES = ("groupnorm_silu.cu", "attention.cu", "attention_generic.cu", "attention_bwd.cu",
-           "attention_bwd_hopper.cu")
+           "attention_bwd_hopper.cu", "bias_epilogue.cu")
 LIB_NAME = "libishape_kernels.so"
 NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 LAUNCHES: Dict[str, int] = {"gn_stats": 0, "gn_norm": 0, "attention": 0, "attention_generic": 0,
-                            "gn_bwd_reduce": 0, "gn_bwd_apply": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0}
+                            "gn_bwd_reduce": 0, "gn_bwd_apply": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0,
+                            "bias_add": 0, "bias_residual": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -211,6 +229,8 @@ def _load() -> ctypes.CDLL:
             lib.ishape_attn_bwd_dkdv.restype = i
             lib.ishape_attn_bwd_wgmma_smem.argtypes = [i, i]
             lib.ishape_attn_bwd_wgmma_smem.restype = i
+            lib.ishape_bias_epilogue.argtypes = [p] * 5 + [i] * 8 + [p]
+            lib.ishape_bias_epilogue.restype = i
             lib.ishape_error_string.argtypes = [i]
             lib.ishape_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -1262,3 +1282,133 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     _check_device(qkv)
     with span("attention"):
         return QKVAttention.apply(qkv, num_heads)
+
+
+# ---------------------------------------------------------------------------
+# Bias epilogue (with the residual add folded in)
+# ---------------------------------------------------------------------------
+
+_BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # of y, res and out; the biases are fp32
+_BIAS_THREADS = 512  # threads per block, at most (the kernel's launch bound)
+_BIAS_BLOCKS_PER_SM = 2  # resident at once: one wave of long-lived blocks
+_BIAS_MAX_BDX = 512  # channel vectors per block; wider C splits over grid y
+
+
+def bias_epilogue_plain(y, b, res=None, res_bias=None):
+    """The composition the kernel fuses, as eager PyTorch computes it: the
+    bias cast to y's dtype, ``y + b``, then ``res + that`` (with ``res +
+    res_bias`` first where given), each add in fp32 rounded to the dtype.
+    ``b`` None: y is a cut layer's gathered output, its bias already added."""
+    h = y if b is None else y + b.to(y.dtype)
+    if res is None:
+        return h
+    if res_bias is not None:
+        res = res + res_bias.to(y.dtype)
+    return res + h
+
+
+def bias_vec(c: int, esize: int, ptrs) -> int:
+    """Channels per thread of the bias epilogue: the widest vector of 16, 8
+    or 4 bytes, or one element, that divides ``c`` and to which every
+    address of ``ptrs`` (out, y and res; 0 for an absent tensor) is
+    aligned; ``esize`` the bytes of one element. The biases are loaded one
+    by one and need no alignment."""
+    addr = functools.reduce(operator.or_, ptrs)  # aligned as its least aligned address
+    vec = 16 // esize
+    while vec > 1 and (c % vec or addr % (vec * esize)):
+        vec //= 2
+    return vec
+
+
+@functools.lru_cache(maxsize=None)
+def bias_epilogue_geometry(rows: int, c: int, vec: int) -> dict:
+    """Launch shape of the bias epilogue (``csrc/bias_epilogue.cu``) on
+    [rows, c] with ``vec`` channels per thread: block (bdx, bdy), grid
+    (row blocks, channel blocks). Thread (tx, ty) of block (bx, cb) owns
+    channel vector cb*bdx + tx and rows bx*bdy + ty + k*row_step, up to
+    four 16-byte loads in flight; about ``_BIAS_BLOCKS_PER_SM`` blocks per
+    SM in all (one wave), never more row blocks than rows to give them.
+    Cached: the UNet asks for the same few shapes every forward (do not
+    change the dict)."""
+    if c % vec:
+        raise ValueError(f"{c} channels are not whole vectors of {vec}")
+    vpr = c // vec
+    bdx = min(vpr, _BIAS_MAX_BDX)
+    bdy = max(1, _BIAS_THREADS // bdx)
+    grid_c = -(-vpr // bdx)
+    per = -(-(_BIAS_BLOCKS_PER_SM * NUM_SMS) // grid_c)
+    grid_x = max(1, min(-(-rows // bdy), per))
+    return dict(vec=vec, block=(bdx, bdy), grid=(grid_x, grid_c), row_step=grid_x * bdy)
+
+
+def bias_epilogue_cuda(y, b, res=None, res_bias=None, out=None):
+    """Launch the bias epilogue: ``rnd(y + rnd(b))`` (the plain form,
+    ``res`` None), ``rnd(res + rnd(y + rnd(b)))`` or, with ``res_bias``,
+    ``rnd(rnd(res + rnd(res_bias)) + rnd(y + rnd(b)))``, rnd the rounding
+    to y's dtype: bit-equal to ``bias_epilogue_plain``. y and res: one shape
+    [..., C], contiguous, bf16 or fp32, on one card; b and res_bias [C],
+    fp32 (the layer's bias as stored). Writes into ``out`` (y itself is
+    allowed) or a new tensor. The checks and the launch take a few host
+    microseconds: every product of a forward calls it."""
+    c, dev, dt = y.shape[-1], y.get_device(), y.dtype
+    if dt not in _BIAS_DTYPES or dev < 0 or not y.is_contiguous():
+        _require_cuda(y, "y", tuple(_BIAS_DTYPES))
+    for name, t in (("b", b), ("res_bias", res_bias)):
+        if t is not None and (t.dtype != torch.float32 or t.get_device() != dev or t.numel() != c
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {t.dtype} [{t.numel()}] on {t.device} for {c} channels of y on {y.device} "
+                             f"(fp32, as the layer stores it, contiguous)")
+    for name, t in (("res", res), ("out", out)):
+        if t is not None and (t.dtype != dt or t.get_device() != dev or t.shape != y.shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device} does not fit y, {dt} "
+                             f"{tuple(y.shape)} on {y.device} (contiguous)")
+    if res_bias is not None and res is None:
+        raise ValueError("res_bias needs res")
+    if out is None:
+        out = torch.empty(y.shape, dtype=dt, device=y.device)
+    rows = y.numel() // c if c else 0
+    if rows == 0:
+        return out
+    ptrs = (out.data_ptr(), y.data_ptr(), 0 if res is None else res.data_ptr())
+    geo = bias_epilogue_geometry(rows, c, bias_vec(c, y.element_size(), ptrs))
+    lib = _lib or _load()
+    # the current stream's raw pointer, without the Stream object that
+    # torch.cuda.current_stream builds (a forward launches 141 epilogues)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    rc = lib.ishape_bias_epilogue(ptrs[0], ptrs[1], b.data_ptr(), ptrs[2],
+                                  None if res_bias is None else res_bias.data_ptr(), _BIAS_DTYPES[dt], rows, c,
+                                  geo["vec"], *geo["block"], *geo["grid"], stream)
+    if rc:
+        _check(lib, rc, "bias_epilogue")
+    kernel = "bias_add" if res is None else "bias_residual"
+    LAUNCHES[kernel] += 1
+    if _records is not None:
+        adds = 1 if res is None else 2 if res_bias is None else 3
+        _record(kernel, y, _nbytes(y, b, res, res_bias, out), fp32_flops=adds * y.numel())
+    return out
+
+
+def needs_grad(*ts) -> bool:
+    """Whether autograd records an op on any of ``ts`` (None skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in ts)
+
+
+def bias_epilogue(y, b, res=None, res_bias=None):
+    """``y + b``, or ``res + (y + b)`` (``res + res_bias`` first where
+    given), with eager PyTorch's rounding: the biases cast to y's dtype
+    (the layer's fp32 bias is passed as stored), one fp32 add per ``+``,
+    rounded to the dtype. y is a product that no op has saved (a fresh
+    convolution or dense output). A CUDA call that wants no gradient (the
+    forwards of sampling, inversion, decoding; in a drag or fit step, the
+    time embedding's path) launches the kernel, writing the result into y's
+    own buffer, and returns it. Under autograd (drag, fit and train steps),
+    on any other device (the CPU; meta, for shape-only forwards) and for
+    ``b`` None (a cut layer whose bias was added before its gather): the
+    plain composition, whose backward is autograd's. The steps under autograd are paced by the host, and a
+    Python autograd Function around the kernel cost them more host time
+    than the kernel saved on the card."""
+    if b is None or not y.is_cuda or needs_grad(y, b, res, res_bias):
+        return bias_epilogue_plain(y, b, res, res_bias)
+    y = y.contiguous()
+    return bias_epilogue_cuda(y, b, None if res is None else res.contiguous(), res_bias, out=y)

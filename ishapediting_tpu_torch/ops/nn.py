@@ -5,6 +5,17 @@ input dtype, weights cast per op to the activation dtype.
 An NHWC tensor here is exactly the memory of the NCHW tensor in
 ``torch.channels_last`` format, so ``conv2d`` hands cuDNN a channels_last
 view with no copy, and the Hopper kernels read it as it is.
+
+Every product (``conv2d``, ``linear``) is rounded to the activation dtype
+before its bias, itself rounded to that dtype, is added, and a residual add
+follows the rounded biased product, as in the JAX package: ``rnd(y +
+rnd(b))``, then ``rnd(res + that)``, each add one fp32 add. The bias add
+is the epilogue ``hopper_kernels.bias_epilogue`` (one hand-written kernel on
+CUDA where no gradient is wanted, which reads the bias as stored and rounds
+it itself; the plain composition on the CPU and under autograd);
+``conv2d_product`` / ``linear_product`` return the
+raw product, which a ResBlock or an attention block hands with its bias and
+its residual to one fused epilogue (``add_bias_residual``).
 """
 
 from __future__ import annotations
@@ -58,35 +69,66 @@ def conv2d(
     stride: int = 1,
     padding: int = 0,
 ) -> torch.Tensor:
-    """2D convolution, NHWC x OIHW -> NHWC, computed in x.dtype. The bias is
-    added after the product is rounded to x.dtype, as in the JAX package
-    (spans ``weight_cast``, ``conv`` or ``conv_fp32``, ``bias_add``)."""
-    w, b = _cast_params(w, b, x.dtype)
+    """2D convolution, NHWC x OIHW -> NHWC, computed in x.dtype. The bias,
+    rounded to x.dtype, is added after the product is rounded to x.dtype,
+    as in the JAX package (spans ``weight_cast``, ``conv`` or ``conv_fp32``,
+    ``bias_add``)."""
+    return add_bias(conv2d_product(x, w, stride, padding), b)
+
+
+def conv2d_product(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """``conv2d`` without its bias: the product rounded to x.dtype, NHWC, a
+    fresh tensor."""
+    w = _cast_weight(w, x.dtype)
     with span("conv_fp32" if x.dtype == torch.float32 else "conv"):
         out = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=padding)
-    return _add_bias(out.permute(0, 2, 3, 1), b)
+    return out.permute(0, 2, 3, 1)
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense layer; ``w`` stored (out, in). Computed in x.dtype, the bias
     added after the product is rounded (the JAX package's rounding points)."""
-    w, b = _cast_params(w, b, x.dtype)
+    return add_bias(linear_product(x, w), b)
+
+
+def linear_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``linear`` without its bias: the product rounded to x.dtype, a fresh
+    tensor."""
+    w = _cast_weight(w, x.dtype)
     with span("linear"):
-        out = F.linear(x, w)
-    return _add_bias(out, b)
+        return F.linear(x, w)
 
 
-def _cast_params(w, b, dtype):
-    """The layer's weight and bias in the activation dtype."""
+def _cast_weight(w, dtype):
+    """The layer's weight in the activation dtype. Its bias is passed as
+    stored: the bias epilogue rounds it to the activation dtype itself."""
     with span("weight_cast"):
-        return w.to(dtype), None if b is None else b.to(dtype)
+        return w.to(dtype)
 
 
-def _add_bias(out, b):
+def add_bias(out, b):
+    """``rnd(out + rnd(b))`` for a fresh product ``out`` (span
+    ``bias_add``): the plain form of the bias epilogue, which may write into
+    ``out``."""
     if b is None:
         return out
+    from ishapediting_tpu_torch.ops import hopper_kernels as hk
+
     with span("bias_add"):
-        return out + b
+        return hk.bias_epilogue(out, b)
+
+
+def add_bias_residual(y, b, res, res_bias=None):
+    """``rnd(res + rnd(y + rnd(b)))`` for a fresh product ``y`` of
+    ``res``'s shape (span ``residual``): the fused form of the bias
+    epilogue, one launch on CUDA, which may write into ``y``. ``res_bias``:
+    res is itself a raw product (a 1x1 skip convolution's) whose bias is
+    added first, ``rnd(res + rnd(res_bias))``. ``b`` None (a cut layer, its
+    bias added before the gather): ``rnd(res + y)``."""
+    from ishapediting_tpu_torch.ops import hopper_kernels as hk
+
+    with span("residual"):
+        return hk.bias_epilogue(y, b, res, res_bias)
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,8 @@ KERNELS = {  # LAUNCHES key -> the CUDA kernel's name in a profiler trace (csrc/
     "gn_bwd_apply": "gn_bwd_apply_kernel",
     "attn_bwd_dq": "attn_bwd_dq_kernel",
     "attn_bwd_dkdv": "attn_bwd_dkdv_kernel",
+    "bias_add": "bias_add_kernel",
+    "bias_residual": "bias_residual_kernel",
 }
 
 

@@ -251,8 +251,10 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     x = torch.randn(1, 4, 4, 32)
     hk.groupnorm_silu(x, torch.ones(32), torch.zeros(32))
     hk.attention_qkv(torch.randn(1, 16, 3 * 64), 1)
+    hk.bias_epilogue(torch.randn(1, 4, 4, 32), torch.randn(32), torch.randn(1, 4, 4, 32), torch.randn(32))
     assert hk.LAUNCHES == {"gn_stats": 0, "gn_norm": 0, "attention": 0, "attention_generic": 0,
-                           "gn_bwd_reduce": 0, "gn_bwd_apply": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0}
+                           "gn_bwd_reduce": 0, "gn_bwd_apply": 0, "attn_bwd_dq": 0, "attn_bwd_dkdv": 0,
+                           "bias_add": 0, "bias_residual": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

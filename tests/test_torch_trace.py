@@ -138,8 +138,11 @@ def _expected_calls(cfg, bf16: bool):
              + sum(l.kind in ("downsample", "upsample") and l.use_conv for l in layers) + 1)
     linears = 2 + len(res) + 2 * attn
     gn, n_attn = kernel_calls_per_forward(cfg)
+    # each ResBlock's last conv, its skip conv and each attention block's
+    # projection add their biases in the block's fused epilogue (``residual``)
+    fused = len(res) + sum(l.in_ch != l.out_ch for l in res) + attn
     return {"unet": 1, "conv": convs - 1 if bf16 else 0, "conv_fp32": 1 if bf16 else convs,
-            "linear": linears, "weight_cast": convs + linears, "bias_add": convs + linears,
+            "linear": linears, "weight_cast": convs + linears, "bias_add": convs + linears - fused,
             "gn_silu": gn, "attention": n_attn, "group_norm": attn, "residual": len(res) + attn,
             "concat": len(lay.output_blocks), "embed": 1, "resample": len(resampled)}
 
@@ -249,7 +252,7 @@ def test_a_launch_builds_its_record_only_inside_record_launches():
             guarded |= {id(n) for n in ast.walk(node)}
         if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) and node.func.id == "_record":
             calls.append(node)
-    assert len(calls) == 7
+    assert len(calls) == 8
     assert all(id(c) in guarded for c in calls)
     with hk.record_launches() as recs:
         assert hk._records is recs
